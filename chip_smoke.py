@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -7,16 +8,23 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for the fp32 checks;
 2. build: compile the CUDA kernels from ``sr3d_torch/kernels/csrc``;
-3. kernels: each kernel against its plain PyTorch version at the serving
-   path's shapes, bf16 and fp32, with its time, the plain version's, one
+3. kernels: each kernel against its plain PyTorch version at the flagship
+   UNet's shapes, bf16 and fp32, with its time, the plain version's, one
    PyTorch library call's for the same function (a yardstick the port never
-   calls) and the card's bound for the work; then the whole serving step on
-   a tiny config, on the GPU against the plain versions on the CPU;
+   calls) and the card's bound for the work; the GN+Swish and attention
+   gradients against autograd of their plain versions; then the whole
+   serving step and one whole train step on a tiny config, on the GPU
+   against the plain versions on the CPU;
 4. serving, DDIM-25 (η=1, marginal init) at the full width of
    ``configs/sr_sr3_VGGF2_16_128_model2.yml``, bf16, random weights from
    seed 0, synthetic FLAME at the real size: two requests (8 faces, then 3
    with a padded tail), outputs checked, kernel launches counted;
-5. serving, the ancestral loop at the config's T=600, one face.
+5. serving, the ancestral loop at the config's T=600, one face;
+6. training, the model2 joint train step at the same full width (N = K×B
+   = 4 synthetic faces, 16→128, dropout 0.2, remat, Adam/AdamW, EMA): three
+   steps with the DDIM-25 hand-off, then one with the config's T=600
+   ancestral hand-off; losses, parameter updates, the frozen prefix, the
+   EMA, step times, peak memory and kernel launches checked.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device and
@@ -25,6 +33,7 @@ when the repository's ``sr3d_torch`` package is not beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -43,6 +52,9 @@ CONFIG = ROOT / "configs" / "sr_sr3_VGGF2_16_128_model2.yml"
 TINY = ROOT / "configs" / "tiny_8_16_model2.yml"
 GN_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 8e-3)}
 ATTN_TOL = GN_TOL
+# the conv kernels sum 9·C products in another order than cuDNN's fp32
+# convolution (TF32 off): ~1e-6 relative; bf16 outputs: one bf16 ulp
+CONV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 8e-3)}
 
 
 def require(ok, what) -> None:
@@ -246,6 +258,226 @@ def phase_kernels(dev) -> dict:
     return rec
 
 
+def phase_conv_kernels(dev) -> dict:
+    """TPU kernels 4 and 5 (public functions that no model path calls, as
+    in the JAX package) against their plain versions at the flagship
+    UNet's shapes; returns their records at the widest shapes (bf16)."""
+    import torch.nn.functional as F
+
+    from sr3d_torch.kernels import conv3x3, fused_gn_swish_conv3x3, gn_swish
+    from sr3d_torch.kernels.conv3x3 import conv3x3_reference
+    from sr3d_torch.kernels.fused_block import fused_block_reference
+
+    rec: dict = {}
+    err = {"conv3x3": 0.0, "fused_gn_swish_conv3x3": 0.0}
+    G = 32
+    cases = (("fused_gn_swish_conv3x3", (8, 128, 128, 64), 64),
+             ("fused_gn_swish_conv3x3", (8, 128, 128, 192), 64),
+             ("fused_gn_swish_conv3x3", (8, 8, 8, 1024), 512),
+             ("conv3x3", (8, 128, 128, 6), 64),      # conv_in
+             ("conv3x3", (8, 128, 128, 128), 128))   # an Upsample conv
+    widest = {("fused_gn_swish_conv3x3", 192), ("conv3x3", 128)}
+    for dtype in (torch.bfloat16, torch.float32):
+        el = 2 if dtype == torch.bfloat16 else 4
+        for name, (B, H, W, C), O in cases:
+            def make(i, B=B, H=H, W=W, C=C, O=O, dtype=dtype):
+                g = torch.Generator().manual_seed(200 + i)
+                x = (torch.randn(B, H, W, C, generator=g) * 2 + 0.5) \
+                    .to(dtype).to(dev)
+                w = (torch.randn(3, 3, C, O, generator=g) * (9 * C) ** -0.5) \
+                    .to(dtype).to(dev)
+                b = (torch.randn(O, generator=g) * 0.1).to(dev)
+                gamma = (torch.rand(C, generator=g) + 0.5).to(dev)
+                beta = (torch.randn(C, generator=g) * 0.1).to(dev)
+                # the yardsticks' operands: NCHW x and OIHW w as the serving
+                # ConvBlock holds them; channels-last OIHW for the conv alone
+                return (x, w, b, gamma, beta,
+                        x.permute(0, 3, 1, 2).contiguous(),
+                        w.permute(3, 2, 0, 1).contiguous(),
+                        w.permute(3, 0, 1, 2).contiguous()
+                        .permute(0, 3, 1, 2))
+
+            (x, w, b, gamma, beta, *_), nxt = _rotating(make, B * H * W * C * el)
+            if name == "conv3x3":
+                out, ref = conv3x3(x, w, b), conv3x3_reference(x, w, b)
+                run = lambda: (lambda a: conv3x3(a[0], a[1], a[2]))(nxt())
+                plain = lambda: (lambda a: conv3x3_reference(
+                    a[0], a[1], a[2]))(nxt())
+                lib = lambda: (lambda a: F.conv2d(
+                    a[0].permute(0, 3, 1, 2), a[7], a[2].to(dtype),
+                    padding=1))(nxt())
+                lib_name = "F.conv2d (cuDNN, channels-last)"
+                extra = 0
+            else:
+                out = fused_gn_swish_conv3x3(x, gamma, beta, w, b, G)
+                ref = fused_block_reference(x, gamma, beta, w, b, G)
+                run = lambda: (lambda a: fused_gn_swish_conv3x3(
+                    a[0], a[3], a[4], a[1], a[2], G))(nxt())
+                plain = lambda: (lambda a: fused_block_reference(
+                    a[0], a[3], a[4], a[1], a[2], G))(nxt())
+                lib = lambda: (lambda a: F.conv2d(
+                    gn_swish(a[5], a[3], a[4], G), a[6], a[2].to(dtype),
+                    padding=1))(nxt())
+                lib_name = "F.conv2d(gn_swish(x)), the serving ConvBlock"
+                extra = 2 * C * 4
+            torch.cuda.synchronize()
+            atol, rtol = CONV_TOL[dtype]
+            e = float((out.float() - ref.float()).abs().max())
+            require(torch.allclose(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol),
+                    f"{name} disagrees at {(B, H, W, C)}->{O} {dtype}: {e}")
+            err[name] = max(err[name], e)
+            t_k, t_p, t_l = (device_ms(f, reps=5) for f in (run, plain, lib))
+            nbytes = (B * H * W * (C + O) + 9 * C * O) * el + 4 * O + extra
+            bd = bound(nbytes, 2 * B * H * W * C * O * 9, dtype)
+            print(f"  {name} {dtype} x={[B, H, W, C]}->{O}: err {e:.3g} "
+                  f"(atol {atol}, rtol {rtol})  kernel {t_k:.4f} ms plain "
+                  f"{t_p:.4f} {lib_name} {t_l:.4f} bound {bd[0]:.4f} "
+                  f"({bd[1]})")
+            if dtype == torch.bfloat16 and (name, C) in widest:
+                rec[name] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                 bound_ms=bd[0], bound_by=bd[1])
+            del x, w, b, gamma, beta, nxt, out, ref
+    for name in rec:
+        rec[name]["max_abs_err"] = err[name]
+    return rec
+
+
+def phase_gradients(dev) -> None:
+    """GN+Swish and attention through their autograd Functions (kernels
+    forward) against autograd of their plain versions, on the card."""
+    from sr3d_torch.kernels import gn_swish, spatial_attention
+    from sr3d_torch.kernels.attention import spatial_attention_reference
+    from sr3d_torch.kernels.groupnorm_swish import gn_swish_reference
+
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator().manual_seed(300)
+        x = (torch.randn(4, 64, 128, 128, generator=g) * 2 + 0.5).to(dtype)
+        gy = torch.randn(x.shape, generator=g).to(dtype)
+        gamma, beta = torch.rand(64, generator=g) + 0.5, \
+            torch.randn(64, generator=g) * 0.1
+        q, k, v, go = (torch.randn(4, 64, 512, generator=g).to(dtype)
+                       for _ in range(4))
+        cases = (("gn_swish", (x, gamma, beta), gy,
+                  lambda *a: gn_swish(*a, 32),
+                  lambda *a: gn_swish_reference(*a, 32)),
+                 ("spatial_attention", (q, k, v), go, spatial_attention,
+                  lambda *a: spatial_attention_reference(*a, 512 ** -0.5)))
+        atol, rtol = GN_TOL[dtype]
+        for name, ins, gout, kern, ref in cases:
+            grads = []
+            for fn in (kern, ref):
+                t = [a.to(dev).requires_grad_() for a in ins]
+                out = fn(*t)
+                require(out.grad_fn is not None, f"{name}: no grad_fn")
+                grads.append(torch.autograd.grad(out, t, gout.to(dev)))
+            torch.cuda.synchronize()
+            e = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(*grads))
+            require(all(torch.allclose(a.float(), b.float(), atol=atol,
+                                       rtol=rtol) for a, b in zip(*grads)),
+                    f"{name} gradient disagrees {dtype}: {e}")
+            print(f"  grad {name} {dtype}: max abs err {e:.3g} vs autograd "
+                  f"of the plain version (atol {atol}, rtol {rtol})")
+
+
+def _leaf_ok(got: torch.Tensor, ref: torch.Tensor, rel: float) -> bool:
+    """``got`` within ``rel`` of ``ref``'s largest entry (floor 1e-6); at
+    most 1% of the elements beyond that (a PReLU input or an L1 difference
+    at 0 flips one element's slope), none by more than a tenth."""
+    scale = float(ref.abs().max())
+    e = (got - ref).abs()
+    return (float((e > rel * scale + 1e-6).float().mean()) <= 0.01
+            and float(e.max()) <= 0.1 * scale + 1e-6)
+
+
+def phase_tiny_train(dev) -> None:
+    """One whole model2 train step on a tiny config (fp32, remat on,
+    dropout 0, N = 4, DDIM-4 hand-off): on the GPU through the kernels
+    against the CPU through the plain versions, same weights and draws."""
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    from sr3d_torch.data.synthetic import synthetic_face_batch
+    from sr3d_torch.diffusion.gaussian import sample_continuous_gamma
+    from sr3d_torch.diffusion.schedules import schedule_from_config
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.ops.image import degrade_pair
+    from sr3d_torch.train.joint import (
+        build_joint,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = update_cfg(get_cfg_defaults(), str(TINY))
+    cfg.tpu.compute_dtype = "float32"
+    cfg.tpu.train_remat = True
+    cfg.mica.model.arcface_layers = [1, 1, 1, 1]
+    cfg.mica.train.use_mask = True
+    cfg.sr.model.diffusion.train_sampler = "ddim"
+    cfg.sr.model.diffusion.train_ddim_steps = 4
+    g = torch.Generator().manual_seed(1)
+    hr = torch.from_numpy(synthetic_face_batch(4, 16, seed=1))
+    batch = {"HR": hr, "SR": degrade_pair(hr, 8, 16)[1],
+             "flame_shape": torch.randn(4, 16, generator=g) * 0.3}
+    _, gamma = sample_continuous_gamma(
+        schedule_from_config(cfg.sr.model.beta_schedule.train), 4,
+        generator=g)
+    draws = {"gamma": gamma, "noise": torch.randn(4, 3, 16, 16, generator=g),
+             "handoff": [torch.randn(4, 3, 16, 16, generator=g)
+                         for _ in range(5)]}
+    res = {}
+    for d in ("cpu", dev):
+        mods = build_joint(cfg, device=d, init_seed=3)
+        state = init_train_state(mods, cfg)
+        reset_launch_counts()
+        state, met = make_train_step(cfg.sr.train.ema_scheduler)(
+            mods, state, batch, draws=draws)
+        counts = launch_counts()
+        nets = {"sr": mods.unet, "arcface": mods.arcface,
+                "mapping": mods.mapping}
+        res[str(d)] = (
+            {k: float(v) for k, v in met.items()},
+            {f"{p}.{n}": t.grad.cpu() for p, net in nets.items()
+             for n, t in net.named_parameters() if t.grad is not None},
+            {f"{p}.{n}": t.detach().cpu() for p, net in nets.items()
+             for n, t in net.named_parameters()},
+            {g_["name"]: g_["lr"] for g_ in state.opt.param_groups})
+    (m_c, g_c, p_c, lrs), (m_g, g_g, p_g, _) = res["cpu"], res[str(dev)]
+    # l_sr: fp32 sums in other orders; l_mica follows the uint8 hand-off,
+    # where a value on a rounding tie may land one level apart
+    require(abs(m_g["l_sr"] - m_c["l_sr"]) <= 1e-5 * abs(m_c["l_sr"]),
+            f"tiny train step l_sr {m_g['l_sr']} vs {m_c['l_sr']}")
+    require(abs(m_g["l_mica"] - m_c["l_mica"]) <= 1e-3 * abs(m_c["l_mica"]),
+            f"tiny train step l_mica {m_g['l_mica']} vs {m_c['l_mica']}")
+    require(g_c.keys() == g_g.keys(), "tiny train step gradient leaves")
+    bad = [n for n in g_c if not _leaf_ok(
+        g_g[n], g_c[n], 1e-4 if n.startswith("sr.") else 5e-2)]
+    require(not bad, f"tiny train step gradients disagree: {bad[:5]}")
+    worst = max(float((g_g[n] - g_c[n]).abs().max())
+                / (float(g_c[n].abs().max()) + 1e-12)
+                for n in g_c if n.startswith("sr."))
+    off = 0
+    for n, p in p_c.items():
+        d_ = (p_g[n] - p).abs()
+        require(float(d_.max()) <= 2 * lrs[n.split(".")[0]] + 1e-6,
+                f"tiny train step parameter {n} off by {float(d_.max())}")
+        off += int((d_ > 1e-6).sum())
+    total = sum(p.numel() for p in p_c.values())
+    require(off <= 0.01 * total, f"tiny step: {off} parameters apart")
+    # the tiny UNet: 8 checkpointed blocks (16 GN, 4 attention) + the final
+    # GN per forward; 4 hand-off forwards, the loss forward and the blocks'
+    # recompute in the backward
+    want = {"gn_stats": 4 * 17 + 17 + 16, "gn_swish": 4 * 17 + 17 + 16,
+            "spatial_attention": 4 * 4 + 4 + 4, "conv3x3": 0,
+            "fused_gn_swish_conv3x3": 0}
+    require(counts == want, f"tiny train step launches {counts}, want {want}")
+    print(f"  tiny train step, GPU kernels vs CPU plain (fp32, remat, N=4): "
+          f"l_sr {m_g['l_sr']:.6f} vs {m_c['l_sr']:.6f}, l_mica "
+          f"{m_g['l_mica']:.5f} vs {m_c['l_mica']:.5f}; UNet gradients "
+          f"within {worst:.2g} of each leaf's max (bound 1e-4), MICA within "
+          f"5e-2; {off}/{total} parameters apart by >1e-6 after the step; "
+          f"launches {counts} (GN 4x17 hand-off + 17 loss + 16 recompute)")
+
+
 def phase_tiny_slice(dev) -> None:
     """The whole serving step on a tiny config (fp32): on the GPU through
     the kernels against the CPU through the plain versions, same weights
@@ -278,7 +510,8 @@ def phase_tiny_slice(dev) -> None:
     # the tiny UNet: 8 ResnetBlocks x 2 GN + the final block = 17 GN+Swish
     # and 4 attention blocks per forward; 8 DDIM steps
     require(counts == {"gn_stats": 8 * 17, "gn_swish": 8 * 17,
-                       "spatial_attention": 8 * 4},
+                       "spatial_attention": 8 * 4, "conv3x3": 0,
+                       "fused_gn_swish_conv3x3": 0},
             f"tiny-step launches {counts}")
     for k in ("sr", "identity", "verts", "lmk68"):
         require(errs[k] < 1e-3, f"tiny step {k} off by {errs[k]}")
@@ -317,6 +550,122 @@ def serve(p, lr) -> tuple[dict, float]:
     return out, time.perf_counter() - t0
 
 
+def phase_training(dev, flame) -> tuple[dict, dict]:
+    """The model2 joint train step at the flagship config's full width:
+    three steps with the DDIM-25 hand-off, then one with the T=600
+    ancestral hand-off.  Returns the kernel launches of the three DDIM
+    steps and of the T=600 step."""
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    from sr3d_torch.data.synthetic import synthetic_face_batch
+    from sr3d_torch.diffusion.gaussian import ddim_sample_loop
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.models.arcface import FROZEN_PREFIX_SCOPES
+    from sr3d_torch.ops.image import degrade_pair
+    from sr3d_torch.train.joint import (
+        build_joint,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = update_cfg(get_cfg_defaults(), str(CONFIG))
+    cfg.tpu.compute_dtype = "bfloat16"
+    d = cfg.sr.model.diffusion
+    d.train_sampler, d.train_ddim_steps = "ddim", 25
+    n = int(cfg.mica.datasets.K) * int(cfg.mica.datasets.batch_size)
+    lo, hi = (int(cfg.sr.datasets.train.l_resolution),
+              int(cfg.sr.datasets.train.r_resolution))
+    hr = torch.from_numpy(synthetic_face_batch(n, hi, seed=0))
+    g = torch.Generator().manual_seed(0)
+    batch = {"HR": hr, "SR": degrade_pair(hr, lo, hi)[1],
+             "flame_shape": torch.randn(n, int(cfg.mica.model.n_shape),
+                                        generator=g) * 0.3}
+    mods = build_joint(cfg, flame=flame, init_seed=0, device=dev)
+    state = init_train_state(mods, cfg)
+    step = make_train_step(cfg.sr.train.ema_scheduler)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    af = mods.arcface
+    prefix = {k: v.clone() for k, v in af.state_dict().items()
+              if k.split(".")[0] in FROZEN_PREFIX_SCOPES}
+    watched = {"sr": mods.unet.conv_in.weight, "sr_mid": mods.unet.mid_0
+               .res_block.block2.conv.weight, "arcface": af.fc.weight,
+               "mapping": mods.mapping.output.weight}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    stats_before = af.bn2.mean.clone()
+    n_unet = sum(p.numel() for p in mods.unet.parameters()) / 1e6
+    print(f"[6] model2 train step, N={n} faces {lo}->{hi}, unet "
+          f"{n_unet:.1f}M params, dropout {mods.unet.dropout}, remat "
+          f"{mods.unet.remat}, {mods.unet.dtype} activations")
+
+    def run(sampler: str) -> tuple[float, float, dict]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, met = step(dataclasses.replace(mods, train_sampler=sampler),
+                      state, batch, generator=gen)
+        m = {k: float(v) for k, v in met.items()}   # waits for the step
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        require(all(math.isfinite(v) for v in m.values()),
+                f"losses not finite: {m}")
+        return dt, torch.cuda.max_memory_allocated() / 2 ** 30, m
+
+    reset_launch_counts()
+    ddim = [run("ddim") for _ in range(3)]
+    ddim_counts = launch_counts()
+    # the split of a DDIM step: its hand-off sampling alone, timed the same
+    # way (the rest is the loss pass, the optimizer and the EMA)
+    cond = batch["SR"].to(dev).permute(0, 3, 1, 2).contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ddim_sample_loop(mods.unet, mods.sched_train, cond, num_steps=25,
+                         eta=1.0, init="marginal", generator=gen)
+    torch.cuda.synchronize()
+    t_hand = time.perf_counter() - t0
+    reset_launch_counts()
+    anc = run("ddpm")
+    anc_counts = launch_counts()
+    T = mods.sched_train.num_timesteps
+    for i, (dt, mem, m) in enumerate(ddim + [anc]):
+        print(f"    step {i + 1} ({'DDIM-25' if i < 3 else f'T={T}'} "
+              f"hand-off): {dt:.3f} s, peak {mem:.2f} GiB, l_sr "
+              f"{m['l_sr']:.5f} l_mica {m['l_mica']:.3f}")
+    t_step = (ddim[1][0] + ddim[2][0]) / 2
+    print(f"    DDIM-25 hand-off alone: {t_hand:.3f} s = "
+          f"{100 * t_hand / t_step:.1f}% of the mean of steps 2-3 "
+          f"({t_step:.3f} s); loss pass + optimizer + EMA "
+          f"{t_step - t_hand:.3f} s")
+    for k, v in watched.items():
+        require(not torch.equal(v.detach(), before[k]), f"{k} did not move")
+    now = af.state_dict()
+    require(all(torch.equal(now[k], v) for k, v in prefix.items()),
+            "the frozen ArcFace prefix (weights or BN statistics) changed")
+    require(not torch.equal(af.bn2.mean, stats_before),
+            "ArcFace's head BN statistics did not update")
+    require(state.step == 4 and state.ema.step == 4,
+            f"step {state.step}, EMA step {state.ema.step}")
+    require(all(torch.equal(state.ema.params[k], p.detach())
+                for k, p in mods.unet.named_parameters()),
+            "EMA is not the warm-up copy of the parameters")
+    # 27 checkpointed ResnetBlocWithAttn (54 GN, the mid attention) + the
+    # final GN per forward; the hand-off's forwards, the loss forward and
+    # the blocks' recompute in the backward
+    per = {"gn_stats": 55, "gn_swish": 55, "spatial_attention": 1}
+    rec_ = {"gn_stats": 54, "gn_swish": 54, "spatial_attention": 1}
+    for counts, steps, reps in ((ddim_counts, 25, 3), (anc_counts, T, 1)):
+        want = {k: reps * ((steps + 1) * per[k] + rec_[k]) for k in per}
+        want.update(conv3x3=0, fused_gn_swish_conv3x3=0)
+        require(counts == want, f"train launches {counts}, want {want}")
+    print(f"    params moved (UNet, ArcFace head, mapping); frozen prefix "
+          f"and its BN statistics unchanged; EMA step {state.ema.step} "
+          f"(warm-up copy below step_start_ema "
+          f"{cfg.sr.train.ema_scheduler.step_start_ema})")
+    print(f"    launches, 3 DDIM steps: {ddim_counts}; T={T} step: "
+          f"{anc_counts} (GN: (hand-off + loss) x 55 + 54 recompute)")
+    print(f"    {smi_line()}")
+    return ddim_counts, anc_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -345,10 +694,15 @@ def main() -> int:
             if "registers" in line:
                 print(f"    {stem}: {line.strip()}")
 
-    # 3. kernels against their plain versions; the slice on a tiny input
+    # 3. kernels against their plain versions; the slices on a tiny input
     print("[3] kernels vs plain versions (device times, CUDA graphs)")
     rec = phase_kernels(dev)
+    rec.update(phase_conv_kernels(dev))
+    print("    conv3x3 and fused_gn_swish_conv3x3 are on no model path (as "
+          "in the JAX package): 0 launches on the main paths")
+    phase_gradients(dev)
     phase_tiny_slice(dev)
+    phase_tiny_train(dev)
 
     # 4. serving, DDIM-25
     cfg = serving_cfg("ddim")
@@ -379,7 +733,8 @@ def main() -> int:
             f"embedding norms {n}")
     chunks = 2
     want = {"gn_stats": chunks * 55 * 25, "gn_swish": chunks * 55 * 25,
-            "spatial_attention": chunks * 25}
+            "spatial_attention": chunks * 25, "conv3x3": 0,
+            "fused_gn_swish_conv3x3": 0}
     require(ddim_counts == want, f"DDIM launches {ddim_counts}, want {want}")
     print(f"    request of 8: {t_a * 1e3:.1f} ms = {8 / t_a:.2f} faces/s; "
           f"request of 3 (padded to 8): {t_b * 1e3:.1f} ms")
@@ -397,10 +752,15 @@ def main() -> int:
     check_outputs(out_c, 1, 5023, 300)
     T = 600
     require(anc_counts == {"gn_stats": 55 * T, "gn_swish": 55 * T,
-                           "spatial_attention": T},
+                           "spatial_attention": T, "conv3x3": 0,
+                           "fused_gn_swish_conv3x3": 0},
             f"ancestral launches {anc_counts}")
     print(f"[5] ancestral T={T}, one face: {t_c:.2f} s (first request, "
           f"includes cuDNN plan selection at batch 1); launches {anc_counts}")
+
+    # 6. training, full width
+    del p
+    train_counts, _ = phase_training(dev, flame)
 
     kernels = []
     meta = {
@@ -410,11 +770,16 @@ def main() -> int:
                      "sr3d_tpu/kernels/groupnorm_swish.py:178"),
         "spatial_attention": ("sr3d_torch/kernels/csrc/attention.cu",
                               "sr3d_tpu/kernels/attention.py:48"),
+        "fused_gn_swish_conv3x3": ("sr3d_torch/kernels/csrc/conv3x3.cu",
+                                   "sr3d_tpu/kernels/fused_block.py:91"),
+        "conv3x3": ("sr3d_torch/kernels/csrc/conv3x3.cu",
+                    "sr3d_tpu/kernels/conv3x3.py:60"),
     }
     for name, (src, replaces) in meta.items():
         r = rec[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": ddim_counts[name],
+                        "train_launches": train_counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

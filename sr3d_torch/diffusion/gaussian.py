@@ -1,6 +1,12 @@
-"""Gaussian diffusion sampling: the ancestral loop and DDIM (NCHW).
+"""Gaussian diffusion: the SR3 training loss, the ancestral loop and DDIM
+(NCHW).
 
-Counterpart of the sampling half of ``sr3d_tpu/diffusion/gaussian.py``.
+Counterpart of ``sr3d_tpu/diffusion/gaussian.py``: ``q_sample_gamma``,
+``sample_continuous_gamma`` and ``p_losses_continuous`` for training, and
+the no-grad samplers.  The training draws (t, γ, noise) come from a
+``torch.Generator`` or are passed in, so a test can replay the JAX
+package's ``split`` draws.
+
 The loops are plain Python loops under ``torch.no_grad()`` that call the
 UNet once per step; every step shares one timestep across the batch, so the
 schedule scalars are read on the host (``np.float32`` arithmetic, as the JAX
@@ -25,6 +31,71 @@ import torch
 from .schedules import DiffusionSchedule
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def q_sample_gamma(x_start: torch.Tensor, gamma: torch.Tensor,
+                   noise: torch.Tensor) -> torch.Tensor:
+    """Continuous-noise-level forward diffusion (SR3):
+    ``x_t = γ·x₀ + sqrt(1 − γ²)·ε``; ``gamma`` is ``[B]`` (or any shape
+    with B elements) and broadcasts over the other dims."""
+    gamma = gamma.reshape(gamma.shape[0], *([1] * (x_start.dim() - 1)))
+    return gamma * x_start + torch.sqrt(1.0 - gamma ** 2) * noise
+
+
+def sample_continuous_gamma(sched: DiffusionSchedule, batch: int, *,
+                            generator: torch.Generator | None = None,
+                            device: torch.device | str = "cpu",
+                            per_sample_t: bool = False,
+                            t: torch.Tensor | None = None,
+                            u: torch.Tensor | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SR3 training noise level: ``t ~ U{1..T}`` (one t for the whole
+    batch, or one per element with ``per_sample_t``), then
+    ``γ ~ U[√ᾱ_{t−1}, √ᾱ_t]`` per element.  ``t`` (``[]`` or ``[batch]``,
+    integer) and ``u`` (``[batch]`` uniforms in [0, 1)) replace the draws
+    from ``generator``.  Returns ``(t [batch], gamma [batch])``, fp32 γ."""
+    T = sched.num_timesteps
+    if t is None:
+        t = torch.randint(1, T + 1, (batch,) if per_sample_t else (),
+                          generator=generator, device=device)
+    if u is None:
+        u = torch.rand(batch, generator=generator, device=device)
+    t = t.to(device=device, dtype=torch.long).expand(batch)
+    table = torch.from_numpy(sched.sqrt_alphas_cumprod_prev).to(device)
+    lo, hi = table[t - 1], table[t]
+    return t, lo + u.to(device, torch.float32) * (hi - lo)
+
+
+def p_losses_continuous(denoise: DenoiseFn, sched: DiffusionSchedule,
+                        hr: torch.Tensor, cond: torch.Tensor | None, *,
+                        generator: torch.Generator | None = None,
+                        gamma: torch.Tensor | None = None,
+                        noise: torch.Tensor | None = None,
+                        loss_type: str = "l1",
+                        per_sample_t: bool = False) -> torch.Tensor:
+    """SR3 continuous-noise-level training loss, summed (``reduction
+    ='sum'``; the caller divides by ``hr.numel()``).  ``hr`` and ``cond``
+    are NCHW; the UNet sees ``[cond, x_noisy]`` with cond first.  ``gamma``
+    ``[B]`` and ``noise`` (``hr``'s shape) replace the draws from
+    ``generator``."""
+    b = hr.shape[0]
+    if gamma is None:
+        _, gamma = sample_continuous_gamma(
+            sched, b, generator=generator, device=hr.device,
+            per_sample_t=per_sample_t)
+    if noise is None:
+        noise = torch.randn(hr.shape, generator=generator, device=hr.device)
+    gamma = gamma.to(hr.device, torch.float32)
+    noise = noise.to(hr.device, torch.float32)
+    x_noisy = q_sample_gamma(hr.float(), gamma, noise)
+    net_in = x_noisy if cond is None else torch.cat([cond.float(), x_noisy],
+                                                    dim=1)
+    eps = denoise(net_in, gamma[:, None]).float()
+    if loss_type == "l1":
+        return (noise - eps).abs().sum()
+    if loss_type == "l2":
+        return ((noise - eps) ** 2).sum()
+    raise ValueError(f"unknown loss_type {loss_type!r} (l1 | l2)")
 
 
 def predict_start_from_noise(sched: DiffusionSchedule, x_t: torch.Tensor,

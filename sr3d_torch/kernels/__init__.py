@@ -5,10 +5,13 @@ its kernel for a CUDA tensor, and counts its launches in ``.launches``.
 """
 
 from .attention import spatial_attention
+from .conv3x3 import conv3x3
+from .fused_block import fused_gn_swish_conv3x3
 from .groupnorm_swish import gn_stats, gn_swish
 
 WRAPPERS = {"gn_stats": gn_stats, "gn_swish": gn_swish,
-            "spatial_attention": spatial_attention}
+            "spatial_attention": spatial_attention, "conv3x3": conv3x3,
+            "fused_gn_swish_conv3x3": fused_gn_swish_conv3x3}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,10 +1,14 @@
-"""Spatial self-attention: the wrapper of the CUDA kernel and its plain
-version.
+"""Spatial self-attention: the wrapper of the CUDA kernel, its plain
+version and its gradient.
 
-Counterpart of ``sr3d_tpu/kernels/attention.py`` (``_attn_pallas``),
-forward only.  q, k, v are ``[B, HW, C]``; the softmax scale is
+Counterpart of ``sr3d_tpu/kernels/attention.py`` (``_attn_pallas`` and its
+custom VJP ``_attn_bwd``).  q, k, v are ``[B, HW, C]``; the softmax scale is
 ``1/sqrt(channels)`` over the full channel count, as the reference einsum
-attention has it.  The kernel lives in ``csrc/attention.cu``.
+attention has it.  The forward kernel lives in ``csrc/attention.cu``.  On
+CUDA a ``torch.autograd.Function`` runs it forward and ``_attn_bwd``'s math
+backward (``spatial_attention_backward``: recomputed fp32 scores, products
+through ``torch.einsum``; the JAX package computes this backward in XLA,
+outside any Pallas kernel).
 
 The wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor, never one in place of the other, and counts kernel launches in
@@ -35,14 +39,26 @@ def spatial_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bij,bjc->bic", p.float(), v.float()).to(q.dtype)
 
 
-def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      channels: int | None = None) -> torch.Tensor:
-    """q, k, v: ``[B, HW, C]`` → ``[B, HW, C]``; scale ``1/sqrt(channels
-    or C)``."""
-    C = channels if channels is not None else q.shape[-1]
-    scale = 1.0 / math.sqrt(C)
-    if q.device.type == "cpu":
-        return spatial_attention_reference(q, k, v, scale)
+def spatial_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, g: torch.Tensor, scale: float
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """``(dq, dk, dv)`` of the attention for the output gradient ``g``, as
+    ``_attn_bwd`` computes them: fp32 scores recomputed, ``dv = Pᵀg``,
+    ``ds = P∘(dp − Σ dp∘P)``, ``dq = ds·k·scale``, ``dk = dsᵀ·q·scale``,
+    each cast to its input's dtype."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.softmax(torch.einsum("bic,bjc->bij", qf, kf) * scale, dim=-1)
+    dv = torch.einsum("bij,bic->bjc", p, gf)
+    dp = torch.einsum("bic,bjc->bij", gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.einsum("bij,bjc->bic", ds, kf) * scale
+    dk = torch.einsum("bij,bic->bjc", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"spatial_attention: expected a CPU or CUDA tensor, "
                          f"got {q.device}")
@@ -68,6 +84,30 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           "spatial_attention")
     spatial_attention.launches += 1
     return out
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _attention_cuda(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*spatial_attention_backward(q, k, v, g, ctx.scale), None)
+
+
+def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      channels: int | None = None) -> torch.Tensor:
+    """q, k, v: ``[B, HW, C]`` → ``[B, HW, C]``; scale ``1/sqrt(channels
+    or C)``.  Differentiable in q, k and v."""
+    C = channels if channels is not None else q.shape[-1]
+    scale = 1.0 / math.sqrt(C)
+    if q.device.type == "cpu":
+        return spatial_attention_reference(q, k, v, scale)
+    return _Attention.apply(q, k, v, scale)
 
 
 spatial_attention.launches = 0

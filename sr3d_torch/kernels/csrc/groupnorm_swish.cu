@@ -8,6 +8,9 @@
 //     affine and swish, written in x's type  ->  gn_swish_apply_kernel.
 //
 // Layout: x is NCHW, so each (b, c) plane of H*W values is contiguous.
+// gn_stats_nhwc_kernel computes the same moments of an NHWC x (the layout
+// of the TPU kernel itself) for the fused GN -> Swish -> conv3x3 block of
+// conv3x3.cu.
 //
 // What bounds it on an H100: memory.  The work is a handful of flops per
 // element against 2 (bf16) or 4 (fp32) bytes, far below the ~295 flop/byte
@@ -119,6 +122,45 @@ __global__ void gn_stats_kernel(const T* __restrict__ x,
   }
 }
 
+// The same moments of an NHWC x (channels innermost), for the fused
+// GN -> Swish -> conv3x3 block, whose public layout is the JAX package's.
+// Block (32, 8): 32 neighbouring channels x 8 pixel rows, so a warp reads
+// 32 consecutive channels of one pixel.  Grid (channel tiles, pixel splits,
+// batch); each block writes its partial sums to [B, splits, C] and the
+// wrapper adds the splits in a fixed order, so the sums are reproducible.
+template <typename T>
+__global__ void gn_stats_nhwc_kernel(const T* __restrict__ x,
+                                     float* __restrict__ psum,
+                                     float* __restrict__ psumsq, int64_t hw,
+                                     int C, int64_t per_split) {
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  const int64_t b = blockIdx.z;
+  const int64_t p0 = (int64_t)blockIdx.y * per_split;
+  const int64_t p1 = p0 + per_split < hw ? p0 + per_split : hw;
+  float s = 0.f, q = 0.f;
+  if (c < C) {
+    const T* px = x + b * hw * C + c;
+    for (int64_t p = p0 + threadIdx.y; p < p1; p += blockDim.y) {
+      const float v = to_f<T>(px[p * C]);
+      s += v;
+      q += v * v;
+    }
+  }
+  __shared__ float ss[8][33], sq[8][33];
+  ss[threadIdx.y][threadIdx.x] = s;
+  sq[threadIdx.y][threadIdx.x] = q;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < C) {
+    for (int r = 1; r < (int)blockDim.y; ++r) {
+      s += ss[r][threadIdx.x];
+      q += sq[r][threadIdx.x];
+    }
+    const int64_t o = (b * gridDim.y + blockIdx.y) * C + c;
+    psum[o] = s;
+    psumsq[o] = q;
+  }
+}
+
 template <typename T>
 __global__ void gn_swish_apply_kernel(const T* __restrict__ x,
                                       const float* __restrict__ sum,
@@ -201,6 +243,29 @@ int sr3d_gn_stats(const void* x, void* sum, void* sumsq, int64_t planes,
     gn_stats_kernel<float><<<(unsigned)planes, threads, 0, s>>>(
         static_cast<const float*>(x), static_cast<float*>(sum),
         static_cast<float*>(sumsq), hw, vec);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x: [batch, hw, C] (NHWC); psum, psumsq: [batch, splits, C] fp32 partial
+// moments, splits = ceil(hw / per_split).  Returns cudaGetLastError().
+int sr3d_gn_stats_nhwc(const void* x, void* psum, void* psumsq, int batch,
+                       int64_t hw, int C, int64_t per_split, int is_bf16,
+                       void* stream) {
+  if (batch < 1 || hw < 1 || C < 1 || per_split < 1)
+    return (int)cudaErrorInvalidValue;
+  dim3 block(32, 8);
+  dim3 grid((unsigned)((C + 31) / 32),
+            (unsigned)((hw + per_split - 1) / per_split), (unsigned)batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    gn_stats_nhwc_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(psum),
+        static_cast<float*>(psumsq), hw, C, per_split);
+  } else {
+    gn_stats_nhwc_kernel<float><<<grid, block, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(psum),
+        static_cast<float*>(psumsq), hw, C, per_split);
   }
   return (int)cudaGetLastError();
 }

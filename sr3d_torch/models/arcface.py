@@ -1,12 +1,22 @@
-"""ArcFace identity encoder: iResNet (NCHW), eval mode.
+"""ArcFace identity encoder: iResNet (NCHW), eval and train mode.
 
 Counterpart of ``sr3d_tpu/models/arcface.py`` (the insightface
 ``iresnet100`` topology): 3×3 stem, per-channel PReLU, four stages of
 IBasicBlocks ([3, 13, 30, 3] for iresnet100), each stride 2, BN → flatten
 → FC to a 512-d embedding, and a final BatchNorm1d ("features") whose scale
-is pinned to 1.  BatchNorm runs from its running statistics (serving).
-Convolutions run in ``dtype``; BatchNorm and the FC in fp32, as the JAX
-module does.
+is pinned to 1.  Convolutions run in ``dtype``; BatchNorm and the FC in
+fp32, as the JAX module does.
+
+BatchNorm follows flax's ``nn.BatchNorm`` (momentum 0.9), not
+``nn.BatchNorm2d``: eval mode normalises with the running statistics;
+train mode with the batch's mean and biased variance (one-pass, clamped at
+0) and updates ``running = 0.9·running + 0.1·batch`` with that biased
+variance too (``nn.BatchNorm2d`` would store the unbiased one).
+
+The frozen prefix (``FROZEN_PREFIX_SCOPES``: stem and stages 1–3) stays in
+eval mode under ``.train()`` unless ``train_frozen_prefix`` is set, as the
+JAX module's ``train_frozen_prefix`` flag has it; the optimizer leaves the
+parameters that ``frozen_prefix_mask`` names frozen out.
 
 The flatten before ``fc`` is taken in NHWC order (h, w, c), as flax
 flattens, so the JAX ``fc`` kernel loads unchanged.  Input: the ArcFace
@@ -37,14 +47,16 @@ class PReLU(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 in fp32 with flax's names (``scale``,
-    ``bias``; statistics ``mean``, ``var``) and flax's arithmetic:
-    ``(x − mean) · (scale · rsqrt(var + eps)) + bias``."""
+    """BatchNorm over dim 1 in fp32 with flax's names (``scale``, ``bias``;
+    statistics ``mean``, ``var``) and flax's arithmetic:
+    ``(x − mean) · (scale · rsqrt(var + eps)) + bias``, from the running
+    statistics in eval mode and from the batch's in train mode (see the
+    module docstring)."""
 
     def __init__(self, channels: int, use_scale: bool = True,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.scale = (nn.Parameter(torch.ones(channels)) if use_scale
                       else None)
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -52,12 +64,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps)
+        xf = x.float()
+        if self.training:
+            dims = [d for d in range(x.dim()) if d != 1]
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps)
         if self.scale is not None:
             mul = mul * self.scale
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        return ((x.float() - self.mean.view(shape)) * mul.view(shape)
-                + self.bias.view(shape))
+        return (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class IBasicBlock(nn.Module):
@@ -105,8 +127,9 @@ class IResNet(nn.Module):
 
     def __init__(self, layers: Sequence[int] = (3, 13, 30, 3),
                  num_features: int = 512, dtype: torch.dtype = torch.bfloat16,
-                 fc_scale: int = 7 * 7):
+                 fc_scale: int = 7 * 7, train_frozen_prefix: bool = False):
         super().__init__()
+        self.train_frozen_prefix = train_frozen_prefix
         self.conv1 = Conv2d(3, 64, 3, padding=1, bias=False,
                             compute_dtype=dtype)
         self.bn1 = BatchNorm(64)
@@ -119,9 +142,32 @@ class IResNet(nn.Module):
         self.fc = Linear(512 * fc_scale, num_features)
         self.features = BatchNorm(num_features, use_scale=False)
 
+    def train(self, mode: bool = True) -> "IResNet":
+        """Train mode for stage 4 and the head; the frozen prefix stays in
+        eval mode unless ``train_frozen_prefix``."""
+        super().train(mode)
+        if mode and not self.train_frozen_prefix:
+            for name in FROZEN_PREFIX_SCOPES:
+                getattr(self, name).train(False)
+        return self
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.prelu(self.bn1(self.conv1(x)))
         h = self.layer4(self.layer3(self.layer2(self.layer1(h))))
         h = self.bn2(h)
         h = h.permute(0, 2, 3, 1).flatten(1)   # flax's (h, w, c) order
         return self.features(self.fc(h))
+
+
+FROZEN_PREFIX_SCOPES = ("conv1", "bn1", "prelu", "layer1", "layer2", "layer3")
+
+
+def frozen_prefix_mask(net: IResNet) -> dict[str, bool]:
+    """Parameter name → trainable, as the JAX package's mask labels the
+    tree: a parameter is frozen when any scope on its path is one of
+    ``FROZEN_PREFIX_SCOPES``.  That freezes the stem and stages 1–3, and
+    also the ``conv1``/``bn1``/``prelu`` of every stage-4 block, whose
+    scope names match at depth."""
+    return {name: not any(part in FROZEN_PREFIX_SCOPES
+                          for part in name.split(".")[:-1])
+            for name, _ in net.named_parameters()}

@@ -1,4 +1,4 @@
-"""SR3 denoising UNet (NCHW), forward for sampling and serving.
+"""SR3 denoising UNet (NCHW), for sampling, serving and training.
 
 Counterpart of ``sr3d_tpu/models/sr3_unet.py``, the topology of the
 reference UNet:
@@ -19,9 +19,24 @@ reference UNet:
 Submodules carry the flax scope names (``down_0_0.res_block.block1.norm``,
 ``mid_0.attn.qkv``, ...), so ``utils/bridge.py`` maps a JAX parameter tree
 onto this module by transposing, not renaming.  Parameters are fp32 and
-activations run in ``dtype`` (bf16 by default).  Dropout is the identity
-here (sampling never trains), and the w8a8 int8 path (``quant_min_res``) is
-not ported yet.
+activations run in ``dtype`` (bf16 by default).  The w8a8 int8 path
+(``quant_min_res``) is not ported yet.
+
+Train mode (``.train()``) adds what flax's ``deterministic=False`` and
+``remat=True`` add:
+
+* dropout at ``dropout`` in ``block2`` of every ResnetBlock only (after
+  GN+Swish, before the conv), inverted-scaled by 1/(1−p) as flax's
+  ``nn.Dropout``.  Its masks come from an explicit ``torch.Generator``
+  passed to ``forward``: one seed per ``ResnetBlocWithAttn`` is drawn from
+  it before the block runs, and the block draws its mask from a generator
+  seeded with it;
+* with ``remat``, each ``ResnetBlocWithAttn`` runs under
+  ``torch.utils.checkpoint`` (non-reentrant).  The checkpoint restores only
+  the global RNG state on recompute, which is why the seed is drawn outside
+  the checkpointed call: the recompute draws the same mask.
+
+``eval()`` is the serving forward: no dropout, no checkpoint.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import spatial_attention
 from ..kernels.groupnorm_swish import gn_swish
@@ -104,34 +120,49 @@ class GroupNorm(nn.Module):
                             self.eps)
 
 
+def apply_dropout(x: torch.Tensor, rate: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 − rate, kept values
+    scaled by 1/(1 − rate), in ``x.dtype``; the mask is drawn from
+    ``generator`` (on ``x``'s device)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class ConvBlock(nn.Module):
-    """GroupNorm → Swish → Conv3×3 (the reference ``Block``)."""
+    """GroupNorm → Swish → (Dropout) → Conv3×3 (the reference ``Block``)."""
 
     def __init__(self, dim_in: int, dim_out: int, groups: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.norm = GroupNormSwish(dim_in, groups)
         self.conv = Conv2d(dim_in, dim_out, 3, padding=1, compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(self.norm(x))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self.norm(x)
+        if self.training and self.dropout > 0.0:
+            h = apply_dropout(h, self.dropout, generator)
+        return self.conv(h)
 
 
 class ResnetBlock(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, time_dim: int, groups: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
         self.block1 = ConvBlock(dim_in, dim_out, groups, dtype)
         self.noise_func = FeatureWiseAffine(time_dim, dim_out, dtype)
-        self.block2 = ConvBlock(dim_out, dim_out, groups, dtype)
+        self.block2 = ConvBlock(dim_out, dim_out, groups, dtype, dropout)
         self.res_conv = (Conv2d(dim_in, dim_out, 1, compute_dtype=dtype)
                          if dim_in != dim_out else None)
 
-    def forward(self, x: torch.Tensor, time_emb: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.block1(x)
         h = self.noise_func(h, time_emb)
-        h = self.block2(h)
+        h = self.block2(h, generator)
         if self.res_conv is not None:
             x = self.res_conv(x)
         return h + x
@@ -160,15 +191,20 @@ class SelfAttention(nn.Module):
 
 class ResnetBlocWithAttn(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, time_dim: int, groups: int,
-                 with_attn: bool, dtype: torch.dtype):
+                 with_attn: bool, dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
-        self.res_block = ResnetBlock(dim_in, dim_out, time_dim, groups, dtype)
+        self.res_block = ResnetBlock(dim_in, dim_out, time_dim, groups, dtype,
+                                     dropout)
         self.attn = (SelfAttention(dim_out, groups, dtype) if with_attn
                      else None)
 
-    def forward(self, x: torch.Tensor, time_emb: torch.Tensor
-                ) -> torch.Tensor:
-        x = self.res_block(x, time_emb)
+    def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
+                seed: int | None = None) -> torch.Tensor:
+        """``seed`` seeds this call's dropout masks (train mode)."""
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(seed)
+        x = self.res_block(x, time_emb, gen)
         return x if self.attn is None else self.attn(x)
 
 
@@ -205,7 +241,8 @@ class SR3UNet(nn.Module):
                  channel_mults: Sequence[int] = (1, 2, 4, 8, 8),
                  attn_res: Sequence[int] = (16,), res_blocks: int = 2,
                  image_size: int = 128, dtype: torch.dtype = torch.bfloat16,
-                 quant_min_res: int = 0):
+                 quant_min_res: int = 0, dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         if quant_min_res > 0:
             raise NotImplementedError(
@@ -213,6 +250,7 @@ class SR3UNet(nn.Module):
                 "yet; serve with quant_min_res: 0")
         self.in_channel = in_channel
         self.dtype = dtype
+        self.dropout, self.remat = dropout, remat
         g, inner = norm_groups, inner_channel
         self.noise_level_mlp = NoiseLevelMLP(inner, dtype)
         self.conv_in = Conv2d(in_channel, inner, 3, padding=1,
@@ -231,7 +269,7 @@ class SR3UNet(nn.Module):
             out = inner * channel_mults[ind]
             for b in range(res_blocks):
                 self._add("down", f"down_{ind}_{b}", ResnetBlocWithAttn(
-                    ch, out, inner, g, use_attn, dtype))
+                    ch, out, inner, g, use_attn, dtype, dropout))
                 ch = out
                 feats.append(ch)
             if ind != n - 1:
@@ -240,15 +278,16 @@ class SR3UNet(nn.Module):
                 feats.append(ch)
                 now_res //= 2
         self._add("mid", "mid_0",
-                  ResnetBlocWithAttn(ch, ch, inner, g, True, dtype))
+                  ResnetBlocWithAttn(ch, ch, inner, g, True, dtype, dropout))
         self._add("mid", "mid_1",
-                  ResnetBlocWithAttn(ch, ch, inner, g, False, dtype))
+                  ResnetBlocWithAttn(ch, ch, inner, g, False, dtype, dropout))
         for ind in reversed(range(n)):
             use_attn = now_res in attn_res
             out = inner * channel_mults[ind]
             for b in range(res_blocks + 1):
                 self._add("up", f"up_{ind}_{b}", ResnetBlocWithAttn(
-                    ch + feats.pop(), out, inner, g, use_attn, dtype))
+                    ch + feats.pop(), out, inner, g, use_attn, dtype,
+                    dropout))
                 ch = out
             if ind != 0:
                 self._add("upsample", f"upsample_{ind}", Upsample(ch, dtype))
@@ -259,17 +298,35 @@ class SR3UNet(nn.Module):
         self.add_module(name, module)
         self.plan.append((kind, name))
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time: torch.Tensor, *,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """In train mode with dropout > 0, ``generator`` (on ``x``'s
+        device) is required: it seeds every block's dropout masks."""
         in_dtype = x.dtype
+        drop = self.training and self.dropout > 0.0
+        if drop and generator is None:
+            raise ValueError("SR3UNet: train-mode dropout needs an explicit "
+                             "torch.Generator")
+        remat = self.training and self.remat and torch.is_grad_enabled()
+        blocks = [n for k, n in self.plan if k in ("down", "mid", "up")]
+        seeds = dict.fromkeys(blocks)
+        if drop:
+            seeds = dict(zip(blocks, torch.randint(
+                0, 2 ** 62, (len(blocks),), generator=generator,
+                device=generator.device).tolist()))
         t = self.noise_level_mlp(time)
         h = self.conv_in(x.to(self.dtype))
         feats = [h]
         for kind, name in self.plan:
             mod = getattr(self, name)
-            if kind in ("down", "mid"):
-                h = mod(h, t)
-            elif kind == "up":
-                h = mod(torch.cat([h, feats.pop()], dim=1), t)
+            if kind in ("down", "mid", "up"):
+                if kind == "up":
+                    h = torch.cat([h, feats.pop()], dim=1)
+                if remat:
+                    h = checkpoint(mod, h, t, seeds[name],
+                                   use_reentrant=False)
+                else:
+                    h = mod(h, t, seeds[name])
             else:
                 h = mod(h)
             if kind in ("down", "downsample"):
@@ -278,8 +335,10 @@ class SR3UNet(nn.Module):
 
 
 def unet_from_config(unet_cfg, diffusion_cfg, *,
-                     dtype: torch.dtype = torch.bfloat16) -> SR3UNet:
-    """Build from ``cfg.sr.model.unet`` + ``cfg.sr.model.diffusion``."""
+                     dtype: torch.dtype = torch.bfloat16,
+                     remat: bool = False) -> SR3UNet:
+    """Build from ``cfg.sr.model.unet`` + ``cfg.sr.model.diffusion``;
+    ``remat`` is ``cfg.tpu.train_remat``."""
     return SR3UNet(
         in_channel=int(unet_cfg["in_channel"]),
         out_channel=int(unet_cfg["out_channel"]),
@@ -291,4 +350,6 @@ def unet_from_config(unet_cfg, diffusion_cfg, *,
         image_size=int(diffusion_cfg["image_size"]),
         dtype=dtype,
         quant_min_res=int(unet_cfg.get("quant_min_res", 0) or 0),
+        dropout=float(unet_cfg.get("dropout", 0.0)),
+        remat=remat,
     )

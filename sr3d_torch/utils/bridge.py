@@ -1,4 +1,5 @@
-"""Weight bridge: JAX parameter trees → the port's ``state_dict``s.
+"""Weight bridge between JAX parameter trees and the port's
+``state_dict``s, both ways.
 
 Input: ``{"sr": unet_vars, "arcface": params, "arcface_stats":
 batch_stats, "mapping": params}`` as nested dicts of numpy arrays (the JAX
@@ -13,6 +14,11 @@ name only:
 * ``scale``, ``bias``, ``alpha`` and the BatchNorm ``mean``/``var`` keep
   their names and values.
 
+The EMA of the SR parameters is a UNet tree too (``load_jax_ema``), and
+``export_jax_params`` / ``state_dict_to_flax`` go the other way, so a test
+can hold parameters, EMA and BatchNorm statistics after a train step
+against the JAX package's.
+
 A reference PyTorch ``.pth`` reaches the port the same way: through the JAX
 package's ``utils/convert.py`` into a flax tree, then through this bridge.
 """
@@ -23,6 +29,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from ..diffusion.ema import EmaState
 
 
 def _leaf(name: str, value: Any) -> tuple[str, torch.Tensor]:
@@ -61,3 +69,45 @@ def load_jax_params(modules, tree: Mapping[str, Any]) -> None:
     arcface.update(flax_to_state_dict(tree.get("arcface_stats", {})))
     modules.arcface.load_state_dict(arcface)
     modules.mapping.load_state_dict(flax_to_state_dict(tree["mapping"]))
+
+
+def load_jax_ema(tree: Mapping[str, Any], step: int,
+                 device: str | torch.device = "cpu") -> EmaState:
+    """A JAX ``EmaState.params`` tree (UNet variables) and its step as the
+    port's ``EmaState``."""
+    return EmaState(params={k: v.to(device)
+                            for k, v in flax_to_state_dict(tree).items()},
+                    step=int(step))
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Dotted ``state_dict`` keys → a nested flax-layout tree of numpy
+    arrays: ``weight`` → ``kernel`` (OIHW → HWIO, ``[out, in]`` →
+    ``[in, out]``), other leaves as they are."""
+    out: dict = {}
+    for key, t in sd.items():
+        *path, name = key.split(".")
+        a = t.detach().float().cpu().numpy()
+        if name == "weight":
+            name = "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return out
+
+
+def export_jax_params(modules) -> dict:
+    """The inverse of ``load_jax_params``: ``{"sr": {"params": …},
+    "arcface": …, "arcface_stats": …, "mapping": {"params": …}}`` as
+    numpy, the JAX package's joint layout."""
+    af = modules.arcface
+    return {
+        "sr": {"params": state_dict_to_flax(dict(
+            modules.unet.named_parameters()))},
+        "arcface": state_dict_to_flax(dict(af.named_parameters())),
+        "arcface_stats": state_dict_to_flax(dict(af.named_buffers())),
+        "mapping": {"params": state_dict_to_flax(dict(
+            modules.mapping.named_parameters()))},
+    }

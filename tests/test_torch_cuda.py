@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from sr3d_torch.kernels import (
+    conv3x3,
+    fused_gn_swish_conv3x3,
     gn_stats,
     gn_swish,
     launch_counts,
@@ -18,10 +20,13 @@ from sr3d_torch.kernels import (
     spatial_attention,
 )
 from sr3d_torch.kernels.attention import spatial_attention_reference
+from sr3d_torch.kernels.conv3x3 import conv3x3_reference
+from sr3d_torch.kernels.fused_block import fused_block_reference
 from sr3d_torch.kernels.groupnorm_swish import (
     gn_stats_reference,
     gn_swish_reference,
 )
+from sr3d_torch.models.sr3_unet import SR3UNet
 
 pytestmark = pytest.mark.cuda
 
@@ -106,12 +111,152 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
     gn_swish(x, gamma, beta, 8)
     q = torch.randn(1, 64, 32, device=cuda)
     spatial_attention(q, q, q)
-    assert launch_counts() == {"gn_stats": 1, "gn_swish": 1,
-                               "spatial_attention": 1}
+    xh = torch.randn(1, 8, 8, 32, device=cuda)
+    w = torch.randn(3, 3, 32, 16, device=cuda)
+    conv3x3(xh, w)
+    fused_gn_swish_conv3x3(xh, gamma, beta, w, torch.zeros(16, device=cuda),
+                           8)
+    assert launch_counts() == {"gn_stats": 2, "gn_swish": 1,
+                               "spatial_attention": 1, "conv3x3": 1,
+                               "fused_gn_swish_conv3x3": 1}
     with pytest.raises(TypeError):
         gn_stats(x.half())
     with pytest.raises(ValueError):
         gn_swish(x.transpose(2, 3), gamma, beta, 8)
     with pytest.raises(ValueError):
         spatial_attention(*(torch.randn(1, 300, 32, device=cuda),) * 3)
-    assert launch_counts()["gn_stats"] == 1
+    with pytest.raises(ValueError):
+        conv3x3(xh, w[:, :, :16])
+    with pytest.raises(ValueError):
+        conv3x3(xh.transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        fused_gn_swish_conv3x3(xh, gamma, beta, w, torch.zeros(16,
+                                                               device=cuda),
+                               5)
+    assert launch_counts()["gn_stats"] == 2
+    assert launch_counts()["conv3x3"] == 1
+
+
+# The conv kernels sum the 9·C products in another order than cuDNN's fp32
+# convolution (TF32 off): ~1e-6 relative on outputs of size ~1, so fp32 is
+# held to 1e-4.  bf16 outputs are rounded to bf16 on both sides: one ulp.
+CONV_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=2e-2, rtol=8e-3)}
+CONV_SHAPES = [
+    ((2, 8, 8, 6), 64),       # conv_in's C = 6
+    ((1, 5, 7, 16), 40),      # H·W = 35 and O = 40: ragged tiles
+    ((2, 16, 16, 32), 16),
+    ((2, 32, 32, 128), 128),  # an Upsample conv's widths
+    ((1, 8, 8, 1024), 512),   # the deepest level
+]
+
+
+def _conv_inputs(xshape, O, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    C = xshape[-1]
+    x = torch.randn(xshape, generator=g).to(dtype)
+    w = (torch.randn(3, 3, C, O, generator=g) * (9 * C) ** -0.5).to(dtype)
+    b = torch.randn(O, generator=g) * 0.1
+    return x.to(device), w.to(device), b.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,O", CONV_SHAPES)
+def test_conv3x3_kernel_matches_plain(cuda, xshape, O, dtype):
+    x, w, b = _conv_inputs(xshape, O, dtype, cuda)
+    for bias in (None, b):
+        out = conv3x3(x, w, bias)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == xshape[:3] + (O,)
+        torch.testing.assert_close(
+            out.float(), conv3x3_reference(x, w, bias).float(),
+            **CONV_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,O,G", [
+    ((2, 16, 16, 64), 64, 8),
+    ((1, 5, 7, 32), 40, 8),      # ragged pixels and outputs
+    ((2, 16, 16, 128), 64, 32),
+    ((1, 8, 8, 1024), 512, 32),  # the deepest level
+])
+def test_fused_block_kernel_matches_plain(cuda, xshape, O, G, dtype):
+    x, w, b = _conv_inputs(xshape, O, dtype, cuda, seed=1)
+    x = (x.float() * 2 + 0.5).to(dtype)
+    gamma = torch.rand(xshape[-1], device=cuda) + 0.5
+    beta = torch.randn(xshape[-1], device=cuda) * 0.1
+    out = fused_gn_swish_conv3x3(x, gamma, beta, w, b, G)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == xshape[:3] + (O,)
+    torch.testing.assert_close(
+        out.float(), fused_block_reference(x, gamma, beta, w, b, G).float(),
+        **CONV_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_stats_nhwc_matches_plain(cuda, dtype):
+    x = (torch.randn(2, 33, 17, 96) * 2 + 0.5).to(dtype).to(cuda)
+    s, q = gn_stats(x, channels_last=True)
+    s_ref, q_ref = gn_stats_reference(x, channels_last=True)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(q, q_ref, rtol=1e-4, atol=1e-3)
+
+
+# Gradients: the wrappers' backward is torch arithmetic on fp32 values, so
+# fp32 agrees with autograd of the plain version to summation order.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_swish_gradient_matches_plain(cuda, dtype):
+    x, gamma, beta = _gn_inputs((2, 64, 16, 16), dtype, cuda, seed=3)
+    gy = torch.randn(x.shape, device=cuda).to(dtype)
+    grads = []
+    for fn in (gn_swish, gn_swish_reference):
+        ins = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+        y = fn(*ins, 32)
+        assert y.grad_fn is not None
+        grads.append(torch.autograd.grad(y, ins, gy))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradient_matches_plain(cuda, dtype):
+    g = torch.Generator(device="cpu").manual_seed(4)
+    q, k, v, go = (torch.randn(8, 64, 512, generator=g).to(dtype).to(cuda)
+                   for _ in range(4))
+    grads = []
+    for fn in (spatial_attention,
+               lambda *a: spatial_attention_reference(*a, 512 ** -0.5)):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins)
+        assert out.grad_fn is not None
+        grads.append(torch.autograd.grad(out, ins, go))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+
+
+def test_remat_keeps_gradients_with_dropout(cuda):
+    """Remat on and off give the same loss and gradients with dropout 0.5:
+    the recompute redraws the same masks.  fp32; cuDNN's weight-gradient
+    sums may run in another order between the two runs, hence 1e-5."""
+    torch.manual_seed(0)
+    unet = SR3UNet(inner_channel=16, norm_groups=8, channel_mults=(1, 2),
+                   attn_res=(8,), res_blocks=1, image_size=16,
+                   dtype=torch.float32, dropout=0.5).to(cuda).train()
+    x = torch.randn(2, 6, 16, 16, device=cuda)
+    t = torch.rand(2, 1, device=cuda)
+    res = []
+    for remat in (False, True):
+        unet.remat = remat
+        unet.zero_grad()
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        loss = unet(x, t, generator=gen).square().mean()
+        loss.backward()
+        res.append((loss.detach(), {n: p.grad.clone()
+                                    for n, p in unet.named_parameters()}))
+    unet.eval()
+    with torch.no_grad():
+        assert not torch.allclose(unet(x, t).square().mean(), res[0][0])
+    torch.testing.assert_close(res[1][0], res[0][0], rtol=1e-6, atol=0)
+    for n, gr in res[0][1].items():
+        torch.testing.assert_close(res[1][1][n], gr, rtol=1e-5, atol=1e-7,
+                                   msg=n)

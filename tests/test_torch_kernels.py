@@ -3,6 +3,7 @@ Pallas kernels, run in interpret mode on the CPU (the Pallas kernels'
 own test recipe), on the same numpy inputs.  The CUDA kernels themselves
 are held to these plain versions on the GPU by tests/test_torch_cuda.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +11,10 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from sr3d_torch.kernels import gn_stats, gn_swish, spatial_attention
-from sr3d_tpu.kernels.attention import _attn_pallas
+from sr3d_torch.kernels.attention import spatial_attention_backward
+from sr3d_torch.kernels.conv3x3 import conv3x3
+from sr3d_torch.kernels.fused_block import fused_gn_swish_conv3x3
+from sr3d_tpu.kernels.attention import _attn_pallas, _attn_pallas_diff
 from sr3d_tpu.kernels.groupnorm_swish import (
     _gn_stats_pallas,
     _gn_swish_pallas,
@@ -104,3 +108,58 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         gn_stats(x)
     with pytest.raises(ValueError):
         spatial_attention(*(torch.zeros(1, 4, 8, device="meta"),) * 3)
+    xh, w = torch.zeros(1, 4, 4, 8, device="meta"), torch.zeros(3, 3, 8, 4)
+    with pytest.raises(ValueError):
+        conv3x3(xh, w)
+    with pytest.raises(ValueError):
+        fused_gn_swish_conv3x3(xh, torch.ones(8), torch.zeros(8), w,
+                               torch.zeros(4), 4)
+
+
+def test_attention_gradient_matches_pallas_vjp():
+    """The backward the CUDA wrapper runs (``spatial_attention_backward``,
+    the math of ``_attn_bwd``) and autograd of the CPU plain version,
+    against ``jax.grad`` through ``_attn_pallas_diff`` in interpret mode:
+    the shapes and tolerance (1e-4) of the JAX package's own test."""
+    rng = np.random.RandomState(5)
+    q, k, v = (rng.randn(2, 16, 32).astype(np.float32) for _ in range(3))
+    scale = 1.0 / float(np.sqrt(32))
+
+    def loss(q, k, v):
+        return jnp.sum(_attn_pallas_diff(q, k, v, scale) ** 2)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = spatial_attention(*ts)
+    auto = torch.autograd.grad(out.square().sum(), ts)
+    manual = spatial_attention_backward(*(t.detach() for t in ts),
+                                        2 * out.detach(), scale)
+    for r, a, m in zip(ref, auto, manual):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4)
+        np.testing.assert_allclose(m.numpy(), np.asarray(r), atol=1e-4)
+
+
+def test_gn_swish_gradient_matches_jax():
+    """Autograd of the port's GN+Swish (what the CUDA wrapper's backward
+    recomputes) against ``jax.grad`` of the JAX reference, fp32: x, γ, β
+    within 1e-4 of each gradient's scale."""
+    rng = np.random.RandomState(6)
+    x = (rng.randn(2, 8, 8, 32) * 2 + 0.5).astype(np.float32)
+    gamma = (rng.rand(32) + 0.5).astype(np.float32)
+    beta = (rng.randn(32) * 0.1).astype(np.float32)
+    gy = rng.randn(2, 8, 8, 32).astype(np.float32)
+
+    def loss(x, g, b):
+        return jnp.sum(groupnorm_swish_reference(x, g, b, 8) * gy)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray,
+                                                 (x, gamma, beta)))
+    ts = [nchw(x).requires_grad_(), torch.from_numpy(gamma).requires_grad_(),
+          torch.from_numpy(beta).requires_grad_()]
+    got = torch.autograd.grad(gn_swish(*ts, 8), ts, nchw(gy))
+    got = (got[0].permute(0, 2, 3, 1), got[1], got[2])
+    for r, g in zip(ref, got):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r,
+                                   atol=1e-4 * np.abs(r).max())

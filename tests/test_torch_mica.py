@@ -49,8 +49,9 @@ def test_arcface_matches_jax():
     sd = flax_to_state_dict(jax.tree.map(np.asarray, variables["params"]))
     sd.update(flax_to_state_dict(stats))
     port.load_state_dict(sd)
-    with torch.no_grad():
-        out = port(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+    with torch.no_grad():   # eval(): BatchNorm on the running statistics
+        out = port.eval()(torch.from_numpy(x).permute(0, 3, 1, 2)
+                          .contiguous())
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-4)
 
 

@@ -59,15 +59,18 @@ def test_config_merges_like_jax(name):
 
 
 def test_import_leaves_jax_out():
-    """Importing every module of the port pulls in no jax, flax or
+    """Importing every module of the port pulls in no jax, flax, optax or
     sr3d_tpu (a fresh interpreter, so this file's imports don't count)."""
     mods = [m.name for m in pkgutil.walk_packages(sr3d_torch.__path__,
                                                    "sr3d_torch.")]
     assert "sr3d_torch.serve" in mods and len(mods) > 15
+    assert {"sr3d_torch.kernels.conv3x3", "sr3d_torch.diffusion.ema",
+            "sr3d_torch.models.masking",
+            "sr3d_torch.data.synthetic"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'sr3d_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'sr3d_tpu'))\n"
             "print('LEAKED', bad) if bad else print('CLEAN')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -122,7 +122,8 @@ def test_val_step_refuses_unported_sampler():
         t_val_step()(mods, {"SR": torch.zeros(1, 16, 16, 3)},
                      generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
-        t_val_step(use_ema=True)
+        t_val_step(use_ema=True)(mods, {"SR": torch.zeros(1, 16, 16, 3)},
+                                 generator=torch.Generator().manual_seed(0))
 
 
 def test_predictor_padding_and_empty_request(jax_side, tmp_path):
