@@ -10,7 +10,8 @@
 // Layout: x is NCHW, so each (b, c) plane of H*W values is contiguous.
 // gn_stats_nhwc_kernel computes the same moments of an NHWC x (the layout
 // of the TPU kernel itself) for the fused GN -> Swish -> conv3x3 block of
-// conv3x3.cu.
+// conv3x3.cu; gn_stats_nhwc_vec_kernel does it with 16-byte loads where C
+// allows.
 //
 // What bounds it on an H100: memory.  The work is a handful of flops per
 // element against 2 (bf16) or 4 (fp32) bytes, far below the ~295 flop/byte
@@ -161,6 +162,58 @@ __global__ void gn_stats_nhwc_kernel(const T* __restrict__ x,
   }
 }
 
+// The same, 16 bytes a thread: block (C/N, rows), thread x owns channels
+// N*x .. N*x+N-1 (N = 16 / sizeof(T)) of pixels y, y + rows, ... of the
+// block's split, so a warp reads 512 contiguous bytes.  The rows' partials
+// are added in row order in shared memory (2 * rows * C floats).
+template <typename T>
+__global__ void gn_stats_nhwc_vec_kernel(const T* __restrict__ x,
+                                         float* __restrict__ psum,
+                                         float* __restrict__ psumsq,
+                                         int64_t hw, int C,
+                                         int64_t per_split) {
+  constexpr int N = 16 / sizeof(T);
+  extern __shared__ float red[];  // [2][rows][C]
+  const int64_t b = blockIdx.y;
+  const int64_t p0 = (int64_t)blockIdx.x * per_split;
+  const int64_t p1 = p0 + per_split < hw ? p0 + per_split : hw;
+  float s[N], q[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e) s[e] = q[e] = 0.f;
+  const T* px = x + b * hw * C + threadIdx.x * N;
+#pragma unroll 4
+  for (int64_t p = p0 + threadIdx.y; p < p1; p += blockDim.y) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(px + p * C));
+    const T* e8 = reinterpret_cast<const T*>(&v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const float f = to_f<T>(e8[e]);
+      s[e] += f;
+      q[e] += f * f;
+    }
+  }
+  const int rows = blockDim.y;
+  float* rs = red + (threadIdx.y * C + threadIdx.x * N);
+  float* rq = rs + rows * C;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    rs[e] = s[e];
+    rq[e] = q[e];
+  }
+  __syncthreads();
+  for (int c = threadIdx.y * blockDim.x + threadIdx.x; c < C;
+       c += blockDim.x * rows) {
+    float ts = 0.f, tq = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      ts += red[r * C + c];
+      tq += red[(rows + r) * C + c];
+    }
+    const int64_t o = (b * gridDim.x + blockIdx.x) * C + c;
+    psum[o] = ts;
+    psumsq[o] = tq;
+  }
+}
+
 template <typename T>
 __global__ void gn_swish_apply_kernel(const T* __restrict__ x,
                                       const float* __restrict__ sum,
@@ -254,10 +307,30 @@ int sr3d_gn_stats_nhwc(const void* x, void* psum, void* psumsq, int batch,
                        void* stream) {
   if (batch < 1 || hw < 1 || C < 1 || per_split < 1)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = is_bf16 ? 8 : 4;  // channels in 16 bytes
+  const int64_t splits = (hw + per_split - 1) / per_split;
+  // the vector kernel has one block a split: below ~one wave (the 8x8
+  // levels) the channel-tiled kernel spreads wider
+  if (C % n == 0 && C / n <= 256 && splits * batch >= 128 &&
+      reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    const int cg = C / n, rows = 256 / cg;
+    dim3 block((unsigned)cg, (unsigned)rows);
+    dim3 grid((unsigned)splits, (unsigned)batch);
+    const size_t smem = 2 * (size_t)rows * C * sizeof(float);
+    if (is_bf16)
+      gn_stats_nhwc_vec_kernel<__nv_bfloat16><<<grid, block, smem, s>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<float*>(psum),
+          static_cast<float*>(psumsq), hw, C, per_split);
+    else
+      gn_stats_nhwc_vec_kernel<float><<<grid, block, smem, s>>>(
+          static_cast<const float*>(x), static_cast<float*>(psum),
+          static_cast<float*>(psumsq), hw, C, per_split);
+    return (int)cudaGetLastError();
+  }
   dim3 block(32, 8);
   dim3 grid((unsigned)((C + 31) / 32),
             (unsigned)((hw + per_split - 1) / per_split), (unsigned)batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     gn_stats_nhwc_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<float*>(psum),

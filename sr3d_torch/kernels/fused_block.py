@@ -11,10 +11,12 @@ NHWC, w ``[3, 3, C, O]`` HWIO, bias ``[O]`` → ``[B, H, W, O]`` in
    per-channel Σx and Σx²;
 2. a tiny torch epilogue folds them into per-(B, C) ``mean`` and
    ``a = rstd·γ`` (the JAX package's "tiny XLA epilogue");
-3. ``csrc/conv3x3.cu``'s conv kernel applies ``swish((x − mean)·a + β)``
-   to every input tile as it loads it, zeroes the out-of-image halo after
-   the activation, rounds the activation to ``x.dtype`` and accumulates the
-   conv in fp32, plus the bias.
+3. ``csrc/conv3x3.cu``'s conv kernel (the path ``conv3x3.conv_plan``
+   picks) applies ``swish((x − mean)·a + β)`` to the input as it enters
+   shared memory (on the tensor-core path once per row band, not per tap),
+   zeroes the out-of-image halo after the activation, rounds the
+   activation to ``x.dtype`` and accumulates the conv in fp32, plus the
+   bias.
 
 The prologue keeps ``(x − mean)·a + β`` rather than ``gn_affine_coeffs``'
 ``a·x + (β − mean·a)``, as the port's GN kernel does: the folded form
@@ -28,15 +30,10 @@ The wrapper counts its conv launches in ``fused_gn_swish_conv3x3.launches``
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ._build import check, function
-from .conv3x3 import check_conv_inputs, conv3x3_reference
+from .conv3x3 import check_conv_inputs, conv3x3_reference, launch_conv
 from .groupnorm_swish import gn_mean_scale, gn_stats, gn_swish_reference
-
-_P = ctypes.c_void_p
 
 
 def gn_affine_coeffs(sum_c: torch.Tensor, sq_c: torch.Tensor,
@@ -74,9 +71,8 @@ def fused_gn_swish_conv3x3(x: torch.Tensor, gamma: torch.Tensor,
                                      eps)
     w = w.to(x.dtype).contiguous()
     bias = bias.float().contiguous()
-    is_bf16 = check_conv_inputs("fused_gn_swish_conv3x3", x, w, bias)
+    check_conv_inputs("fused_gn_swish_conv3x3", x, w, bias)
     B, H, W, C = x.shape
-    O = w.shape[-1]
     if C % num_groups:
         raise ValueError(f"fused_gn_swish_conv3x3: {C} channels do not "
                          f"split into {num_groups} groups")
@@ -87,15 +83,9 @@ def fused_gn_swish_conv3x3(x: torch.Tensor, gamma: torch.Tensor,
     s, q = gn_stats(x, channels_last=True)
     mean_c, a = gn_mean_scale(s, q, gamma, float(H * W * (C // num_groups)),
                               num_groups, eps)
-    beta = beta.float().contiguous()
-    out = torch.empty(B, H, W, O, device=x.device, dtype=x.dtype)
-    fn = function("conv3x3", "sr3d_fused_gn_swish_conv3x3",
-                  [_P] * 7 + [ctypes.c_int] * 6 + [_P])
-    check(fn(x.data_ptr(), mean_c.contiguous().data_ptr(),
-             a.contiguous().data_ptr(), beta.data_ptr(), w.data_ptr(),
-             bias.data_ptr(), out.data_ptr(), B, H, W, C, O, is_bf16,
-             torch.cuda.current_stream(x.device).cuda_stream),
-          "fused_gn_swish_conv3x3")
+    out = launch_conv("fused_gn_swish_conv3x3", x, w, bias,
+                      (mean_c.contiguous(), a.contiguous(),
+                       beta.float().contiguous()))
     fused_gn_swish_conv3x3.launches += 1
     return out
 

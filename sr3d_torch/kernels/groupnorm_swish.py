@@ -26,7 +26,7 @@ from ._build import check, function
 
 _P = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_NHWC_ROWS_PER_BLOCK = 512  # pixels one block of the NHWC stats kernel sums
+_NHWC_ROWS_PER_BLOCK = 256  # pixels one block of the NHWC stats kernel sums
 
 
 def gn_stats_reference(x: torch.Tensor, channels_last: bool = False

@@ -22,19 +22,19 @@ onto this module by transposing, not renaming.  Parameters are fp32 and
 activations run in ``dtype`` (bf16 by default).  The w8a8 int8 path
 (``quant_min_res``) is not ported yet.
 
-Train mode (``.train()``) adds what flax's ``deterministic=False`` and
-``remat=True`` add:
-
-* dropout at ``dropout`` in ``block2`` of every ResnetBlock only (after
-  GN+Swish, before the conv), inverted-scaled by 1/(1−p) as flax's
-  ``nn.Dropout``.  Its masks come from an explicit ``torch.Generator``
-  passed to ``forward``: one seed per ``ResnetBlocWithAttn`` is drawn from
-  it before the block runs, and the block draws its mask from a generator
-  seeded with it;
-* with ``remat``, each ``ResnetBlocWithAttn`` runs under
-  ``torch.utils.checkpoint`` (non-reentrant).  The checkpoint restores only
-  the global RNG state on recompute, which is why the seed is drawn outside
-  the checkpointed call: the recompute draws the same mask.
+Train mode (``.train()``) adds what flax's ``remat=True`` adds: with
+``remat``, each ``ResnetBlocWithAttn`` runs under
+``torch.utils.checkpoint`` (non-reentrant).  ``forward(...,
+deterministic=False)`` in train mode adds what flax's
+``deterministic=False`` adds: dropout at ``dropout`` in ``block2`` of every
+ResnetBlock only (after GN+Swish, before the conv), inverted-scaled by
+1/(1−p) as flax's ``nn.Dropout``.  Its masks come from an explicit
+``torch.Generator`` passed to ``forward``: one seed per
+``ResnetBlocWithAttn`` is drawn from it before the block runs, and the
+block draws its mask from a generator seeded with it.  The checkpoint
+restores only the global RNG state on recompute, which is why the seed is
+drawn outside the checkpointed call: the recompute draws the same mask.
+``deterministic`` defaults to True, as flax's ``SR3UNet.__call__`` does.
 
 ``eval()`` is the serving forward: no dropout, no checkpoint.
 """
@@ -143,7 +143,7 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.norm(x)
-        if self.training and self.dropout > 0.0:
+        if generator is not None and self.dropout > 0.0:
             h = apply_dropout(h, self.dropout, generator)
         return self.conv(h)
 
@@ -299,11 +299,13 @@ class SR3UNet(nn.Module):
         self.plan.append((kind, name))
 
     def forward(self, x: torch.Tensor, time: torch.Tensor, *,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """In train mode with dropout > 0, ``generator`` (on ``x``'s
-        device) is required: it seeds every block's dropout masks."""
+                generator: torch.Generator | None = None,
+                deterministic: bool = True) -> torch.Tensor:
+        """Dropout is drawn only in train mode with ``deterministic=False``
+        and dropout > 0; then ``generator`` (on ``x``'s device) is
+        required: it seeds every block's dropout masks."""
         in_dtype = x.dtype
-        drop = self.training and self.dropout > 0.0
+        drop = self.training and not deterministic and self.dropout > 0.0
         if drop and generator is None:
             raise ValueError("SR3UNet: train-mode dropout needs an explicit "
                              "torch.Generator")

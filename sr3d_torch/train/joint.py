@@ -323,14 +323,14 @@ def make_train_step(ema_cfg: dict | None = None):
     ``batch``: ``HR``/``SR`` ``[N, h, h, 3]`` NHWC in [−1, 1] (the
     flattened K×B batch) and ``flame_shape`` ``[N, n_shape]``.  The random
     draws come from ``generator`` (on ``modules.device``): the hand-off's
-    noise, l_sr's t, γ and noise, and the UNet's dropout masks.  ``draws``
-    replaces some of them: ``"gamma"`` ``[N]`` and ``"noise"`` (NCHW) for
-    l_sr, ``"handoff"`` the sampler's noise list (see
-    ``diffusion.gaussian``).
+    noise and l_sr's t, γ and noise.  ``draws`` replaces some of them:
+    ``"gamma"`` ``[N]`` and ``"noise"`` (NCHW) for l_sr, ``"handoff"`` the
+    sampler's noise list (see ``diffusion.gaussian``).
 
     One step: the hand-off sample under ``no_grad`` with the UNet in eval
     mode; ``l_sr = p_losses_continuous(…)/hr.numel()`` conditioned on
-    ``batch["SR"]`` with the UNet in train mode (dropout, remat); the
+    ``batch["SR"]`` with the UNet in train mode (remat) and deterministic,
+    as the JAX step's ``unet.apply`` leaves flax's default; the
     quantised uint8 hand-off → ArcFace in train mode → mapping → FLAME →
     ``l_mica = masked_vertex_l1``; one backward of ``l_sr + l_mica``; the
     optimizer step (StepLR set from ``state.step``); the EMA update.
@@ -366,7 +366,7 @@ def make_train_step(ema_cfg: dict | None = None):
         modules.arcface.train()
         try:
             l_sr = p_losses_continuous(
-                lambda x, t: modules.unet(x, t, generator=generator),
+                modules.unet,
                 modules.sched_train, hr.permute(0, 3, 1, 2).contiguous(),
                 cond.permute(0, 3, 1, 2).contiguous(), generator=generator,
                 gamma=draws.get("gamma"), noise=draws.get("noise"),

@@ -143,11 +143,15 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
 CONV_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
             torch.bfloat16: dict(atol=2e-2, rtol=8e-3)}
 CONV_SHAPES = [
-    ((2, 8, 8, 6), 64),       # conv_in's C = 6
+    ((2, 8, 8, 6), 64),       # conv_in's C = 6 (CUDA cores)
     ((1, 5, 7, 16), 40),      # H·W = 35 and O = 40: ragged tiles
     ((2, 16, 16, 32), 16),
-    ((2, 32, 32, 128), 128),  # an Upsample conv's widths
-    ((1, 8, 8, 1024), 512),   # the deepest level
+    ((2, 32, 32, 128), 128),  # an Upsample conv's widths (tensor cores)
+    ((1, 8, 8, 1024), 512),   # the deepest level: K split 16 ways
+    ((1, 20, 20, 64), 64),    # W not a multiple of the band's width
+    ((2, 16, 16, 64), 3),     # O = 3, final_conv's (CUDA cores)
+    ((4, 8, 8, 64), 128),     # H·W < 128: a tile spans two images
+    ((1, 4, 160, 64), 64),    # W > 128: tiles share halo columns
 ]
 
 
@@ -178,7 +182,10 @@ def test_conv3x3_kernel_matches_plain(cuda, xshape, O, dtype):
     ((2, 16, 16, 64), 64, 8),
     ((1, 5, 7, 32), 40, 8),      # ragged pixels and outputs
     ((2, 16, 16, 128), 64, 32),
-    ((1, 8, 8, 1024), 512, 32),  # the deepest level
+    ((1, 8, 8, 1024), 512, 32),  # the deepest level: split K
+    ((1, 20, 20, 64), 64, 32),   # W not a multiple of the band's width
+    ((4, 8, 8, 64), 128, 32),    # a tile spans two images
+    ((2, 16, 16, 64), 3, 32),    # O = 3 (CUDA cores)
 ])
 def test_fused_block_kernel_matches_plain(cuda, xshape, O, G, dtype):
     x, w, b = _conv_inputs(xshape, O, dtype, cuda, seed=1)
@@ -191,6 +198,35 @@ def test_fused_block_kernel_matches_plain(cuda, xshape, O, G, dtype):
     torch.testing.assert_close(
         out.float(), fused_block_reference(x, gamma, beta, w, b, G).float(),
         **CONV_TOL[dtype])
+
+
+def test_split_k_repeats_bit_for_bit(cuda):
+    """The split-K path sums its fp32 partials in a fixed order, without
+    atomics: repeated calls give equal bits; one launch counted a call."""
+    x, w, b = _conv_inputs((8, 8, 8, 1024), 512, torch.bfloat16, cuda)
+    gamma = torch.rand(1024, device=cuda) + 0.5
+    beta = torch.randn(1024, device=cuda) * 0.1
+    reset_launch_counts()
+    for fn in (lambda: conv3x3(x, w, b),
+               lambda: fused_gn_swish_conv3x3(x, gamma, beta, w, b, 32)):
+        first = fn()
+        for _ in range(3):
+            assert torch.equal(fn(), first)
+    counts = launch_counts()
+    assert counts["conv3x3"] == 4 and counts["fused_gn_swish_conv3x3"] == 4
+
+
+def test_conv_kernels_take_unaligned_views(cuda):
+    """Contiguous views that start 2 bytes into their storage (TMA wants
+    16-byte aligned bases): the tensor-core path copies them first."""
+    x, w, b = _conv_inputs((2, 16, 16, 64), 64, torch.bfloat16, cuda)
+    xv = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:] \
+        .view(x.shape).copy_(x)
+    wv = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda)[1:] \
+        .view(w.shape).copy_(w)
+    assert xv.data_ptr() % 16 and wv.data_ptr() % 16
+    torch.testing.assert_close(conv3x3(xv, wv, b).float(),
+                               conv3x3(x, w, b).float(), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -249,7 +285,8 @@ def test_remat_keeps_gradients_with_dropout(cuda):
         unet.remat = remat
         unet.zero_grad()
         gen = torch.Generator(device=cuda).manual_seed(7)
-        loss = unet(x, t, generator=gen).square().mean()
+        loss = unet(x, t, generator=gen,
+                    deterministic=False).square().mean()
         loss.backward()
         res.append((loss.detach(), {n: p.grad.clone()
                                     for n, p in unet.named_parameters()}))

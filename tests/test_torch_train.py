@@ -2,10 +2,12 @@
 the tiny config of ``tests/test_joint.py`` (copied here): the diffusion
 loss and its draws, one whole train step for the ddpm and the ddim
 hand-off (losses, every gradient leaf, the parameters after the step,
-ArcFace's BatchNorm statistics), the optimizer across a StepLR transition,
-the EMA, the vertex loss and its weights, and the UNet's train mode
-(dropout, remat).  Weights go through ``sr3d_torch/utils/bridge.py``; JAX's
-random draws are replayed into the port."""
+ArcFace's BatchNorm statistics; at the configs' dropout too, which the JAX
+step does not draw), the optimizer across a StepLR transition, the EMA,
+the vertex loss and its weights, and the UNet's train mode (remat;
+dropout only with ``deterministic=False``).  Weights go through
+``sr3d_torch/utils/bridge.py``; JAX's random draws are replayed into the
+port."""
 
 import jax
 import jax.numpy as jnp
@@ -221,9 +223,16 @@ def _grab_grads():
         update=lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
 
 
-@pytest.mark.parametrize("sampler", ["ddpm", "ddim"])
-def test_train_step_matches_jax(jax_params, sampler):
+@pytest.mark.parametrize("sampler,dropout", [
+    pytest.param("ddpm", 0.0, id="ddpm"),
+    pytest.param("ddim", 0.0, id="ddim"),
+    # the configs' dropout: the JAX step's UNet is deterministic (flax's
+    # default), so the port's step must draw no dropout mask either
+    pytest.param("ddim", 0.2, id="ddim-0.2"),
+])
+def test_train_step_matches_jax(jax_params, sampler, dropout):
     cfg = tiny_cfg(get_cfg_defaults(), sampler)
+    cfg.sr.model.unet.dropout = dropout
     jmods = jj.build_joint(cfg)
     state = jax_params
     # N = 4, the flagship's K×B: at N = 2 the batch-statistics "features"
@@ -241,7 +250,9 @@ def test_train_step_matches_jax(jax_params, sampler):
         p, opt.update(g, opt.init(p), p)[0]))(grads_j, state.params)
 
     tcfg = tiny_cfg(t_defaults(), sampler)
+    tcfg.sr.model.unet.dropout = dropout
     tmods = _port_modules(tcfg, state)
+    assert tmods.unet.dropout == dropout
     tstate = tj.init_train_state(tmods, tcfg)
     T = tmods.sched_train.num_timesteps
     order = range(T) if sampler == "ddpm" else range(3, -1, -1)
@@ -415,20 +426,21 @@ def test_build_joint_fields_match_jax():
 
 def test_train_step_control_arms_and_generator_draws():
     """handoff_source "hr" feeds the HR batch to MICA (no sampling); with a
-    generator and dropout the step runs, and the same seed repeats it."""
+    generator the step runs, and the same seed repeats it; the UNet's
+    dropout draws no mask (the losses equal dropout 0's)."""
     cfg = tiny_cfg(t_defaults())
     cfg.train.handoff_source = "hr"
-    cfg.sr.model.unet.dropout = 0.3
     b = {k: torch.from_numpy(v) for k, v in batch_of().items()}
     losses = []
-    for _ in range(2):
+    for dropout in (0.3, 0.3, 0.0):
+        cfg.sr.model.unet.dropout = dropout
         mods = tj.build_joint(cfg, device="cpu", init_seed=2)
         st = tj.init_train_state(mods, cfg)
         st, met = tj.make_train_step()(
             mods, st, b, generator=torch.Generator().manual_seed(5))
         losses.append((float(met["l_sr"]), float(met["l_mica"])))
         assert not mods.unet.training and not mods.arcface.training
-    assert losses[0] == losses[1]
+    assert losses[0] == losses[1] == losses[2]
     assert all(np.isfinite(losses[0]))
 
 
@@ -580,10 +592,10 @@ def test_dropout_rate_scale_and_reproducibility():
                          torch.Generator()).dtype == torch.bfloat16
 
 
-def test_unet_train_mode_dropout_and_remat():
-    """Dropout acts in train mode only; remat on and off give the same
-    gradients with dropout on, because the masks' seeds are drawn outside
-    the checkpointed blocks."""
+def test_unet_train_mode_is_deterministic_by_default():
+    """Train mode alone (flax's remat, not its ``deterministic=False``)
+    gives the eval output: dropout is drawn only with
+    ``deterministic=False``."""
     torch.manual_seed(0)
     unet = SR3UNet(inner_channel=16, norm_groups=8, channel_mults=(1, 2),
                    attn_res=(8,), res_blocks=1, image_size=16,
@@ -591,15 +603,36 @@ def test_unet_train_mode_dropout_and_remat():
     x, t = torch.randn(2, 6, 16, 16), torch.rand(2, 1)
     with torch.no_grad():
         ev = unet.eval()(x, t)
-        assert torch.equal(ev, unet(x, t))
+        unet.train()
+        assert torch.equal(unet(x, t), ev)
+        assert torch.equal(
+            unet(x, t, generator=torch.Generator().manual_seed(9)), ev)
+        drop = unet(x, t, generator=torch.Generator().manual_seed(9),
+                    deterministic=False)
+    assert not torch.allclose(drop, ev)
+
+
+def test_unet_train_mode_dropout_and_remat():
+    """With ``deterministic=False``, dropout acts in train mode only; remat
+    on and off give the same gradients with dropout on, because the masks'
+    seeds are drawn outside the checkpointed blocks."""
+    torch.manual_seed(0)
+    unet = SR3UNet(inner_channel=16, norm_groups=8, channel_mults=(1, 2),
+                   attn_res=(8,), res_blocks=1, image_size=16,
+                   dtype=torch.float32, dropout=0.5)
+    x, t = torch.randn(2, 6, 16, 16), torch.rand(2, 1)
+    with torch.no_grad():
+        ev = unet.eval()(x, t)
+        assert torch.equal(ev, unet(x, t, deterministic=False))
     unet.train()
     with pytest.raises(ValueError):
-        unet(x, t)
+        unet(x, t, deterministic=False)
     res = []
     for remat in (False, True):
         unet.remat = remat
         unet.zero_grad()
-        out = unet(x, t, generator=torch.Generator().manual_seed(9))
+        out = unet(x, t, generator=torch.Generator().manual_seed(9),
+                   deterministic=False)
         out.square().mean().backward()
         res.append((out.detach(), {n: p.grad.clone()
                                    for n, p in unet.named_parameters()}))
