@@ -10,8 +10,13 @@ backward (``spatial_attention_backward``: recomputed fp32 scores, products
 through ``torch.einsum``; the JAX package computes this backward in XLA,
 outside any Pallas kernel).
 
-The wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor, never one in place of the other, and counts kernel launches in
+``attn_plan`` names the kernel for a shape (``mma``: bf16 on the tensor
+cores over a thread-block cluster; ``simt``: CUDA cores, for fp32 and bf16
+with C not a multiple of 8); it is pure Python, so the CPU tests hold its
+choices.
+
+The wrapper runs the plain version for a CPU tensor and a kernel for a CUDA
+tensor, never one in place of the other, and counts kernel launches in
 ``spatial_attention.launches``.
 """
 
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -26,7 +32,33 @@ from ._build import check, function
 
 _P = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_TOKENS = 256  # score rows the kernel keeps in shared memory
+MAX_TOKENS = 256  # score rows the kernels keep in shared memory
+SLICE = 64  # channels of one CTA's slice
+MAX_CLUSTER = 8  # the portable cluster size
+
+
+@dataclass(frozen=True)
+class AttnPlan:
+    """How one attention call runs on the card.  ``path`` is ``"mma"``
+    (``attn_mma_kernel``: a cluster of ``cluster`` CTAs, one per 64-channel
+    slice, for each (64-query tile, image) pair) or ``"simt"``
+    (``attn_fwd_kernel``); ``why`` says why."""
+
+    path: str
+    why: str
+    cluster: int = 0
+
+
+def attn_plan(HW: int, C: int, dtype: torch.dtype) -> AttnPlan:
+    """The kernel for q, k, v ``[B, HW, C]`` of ``dtype``."""
+    if dtype != torch.bfloat16:
+        return AttnPlan("simt", "fp32: tensor cores would mean TF32")
+    if C % 8:
+        return AttnPlan("simt", f"C = {C} is not a multiple of 8 "
+                                f"(16-byte rows)")
+    cluster = min(MAX_CLUSTER, -(-C // SLICE))
+    return AttnPlan("mma", f"bf16: {cluster} channel slices a cluster",
+                    cluster)
 
 
 def spatial_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -74,12 +106,16 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if HW > MAX_TOKENS:
         raise ValueError(f"spatial_attention: {HW} tokens > {MAX_TOKENS}, "
                          f"the kernel's limit")
+    plan = attn_plan(HW, Cq, q.dtype)
+    if plan.path == "mma":   # 16-byte loads; a view may start anywhere
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     out = torch.empty_like(q)
     fn = function("attention", "sr3d_attention_fwd",
                   [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, _P])
+                   ctypes.c_float, ctypes.c_int, ctypes.c_int, _P])
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, HW,
-             Cq, scale, _DTYPES[q.dtype],
+             Cq, scale, _DTYPES[q.dtype], plan.cluster,
              torch.cuda.current_stream(q.device).cuda_stream),
           "spatial_attention")
     spatial_attention.launches += 1

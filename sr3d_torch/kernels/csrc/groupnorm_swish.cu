@@ -1,47 +1,80 @@
-// GroupNorm + Swish for Hopper (sm_90a): a statistics pass and an apply pass.
+// GroupNorm + Swish for Hopper (sm_90a): a one-pass kernel that reads x
+// once over a thread-block cluster, and a statistics pass + apply pass.
 //
 // Replaces two TPU kernels of sr3d_tpu/kernels/groupnorm_swish.py:
 //   * _gn_stats_pallas (_stats_kernel): per-channel sum and sum of squares
 //     over (H, W) in fp32  ->  gn_stats_kernel below;
 //   * _gn_swish_pallas (_gn_swish_kernel): GroupNorm with one-pass fp32
 //     statistics, E[x^2] - E[x]^2 clamped at 0, eps, then the gamma/beta
-//     affine and swish, written in x's type  ->  gn_swish_apply_kernel.
+//     affine and swish, written in x's type, both passes on chip  ->
+//     gn_swish_onepass_kernel, or gn_stats_kernel + gn_swish_apply_kernel.
 //
-// Layout: x is NCHW, so each (b, c) plane of H*W values is contiguous.
-// gn_stats_nhwc_kernel computes the same moments of an NHWC x (the layout
-// of the TPU kernel itself) for the fused GN -> Swish -> conv3x3 block of
-// conv3x3.cu; gn_stats_nhwc_vec_kernel does it with 16-byte loads where C
-// allows.
+// Layout: x is NCHW, so each (b, c) plane of H*W values is contiguous, and
+// so is each (b, group) span of C/G planes.  gn_stats_nhwc_kernel computes
+// the same moments of an NHWC x (the layout of the TPU kernel itself) for
+// the fused GN -> Swish -> conv3x3 block of conv3x3.cu;
+// gn_stats_nhwc_vec_kernel does it with 16-byte loads where C allows.
 //
 // What bounds it on an H100: memory.  The work is a handful of flops per
 // element against 2 (bf16) or 4 (fp32) bytes, far below the ~295 flop/byte
-// the card needs before compute matters.  The least traffic is one read of
-// x for the statistics and one read plus one write for the apply.
+// the card needs before compute matters.  The least traffic is one read and
+// one write of x.
 //
-// Design:
-//   * The TPU kernel held one image's [HW, C] block in VMEM and did both
-//     passes on it.  At the 16->128 config that block is up to 128^2 x 192
-//     bf16 = 6.3 MB, far beyond the 227 KB of shared memory a Hopper block
-//     has, so the port splits it into two kernels and x is read twice.
+// gn_swish_onepass_kernel<T>: the path of gn_swish wherever the plan
+// (gn_plan in groupnorm_swish.py) finds that a group fits on chip; on the
+// 16->128 UNet that is every call.
+//   * The TPU kernel held one image's [HW, C] block in VMEM (up to 6.3 MB
+//     at 128^2 x 192: no SM holds that).  One group does fit a cluster:
+//     at most 6 x 128^2 = 98 304 values on the flagship's path, 192 KB in
+//     bf16, 384 KB in fp32.
+//   * Grid: a cluster of S in {1, 2, 4, 8} CTAs per (b, group); S and the
+//     threads come from the plan, which keeps a CTA's share of a group at
+//     most 48 KB and gives the card at least two CTAs an SM at B = 8 and
+//     at B = 1 where the shares stay >= 8 KB.
+//   * Load: rank r takes the contiguous 16-byte vectors [n r / S,
+//     n (r + 1) / S) of the group.  One thread copies the share into shared
+//     memory with 1-D bulk copies (cp.async.bulk, the TMA engine) that
+//     complete on an mbarrier: no thread spends registers or issue slots
+//     on the load, and with the data in shared memory, not registers, up to
+//     8 CTAs stay resident on an SM, each in its own phase, so one CTA's
+//     loads overlap another's stores.  (A first version held the share in
+//     registers: 107 registers a thread, 3 CTAs an SM, 1 TB/s.)
+//   * Moments: fp32 sums per thread in a fixed order, a warp shuffle tree,
+//     a fixed-order pass over the warps.  After a cluster barrier, lane r
+//     of warp 0 reads rank r's partials through distributed shared memory
+//     (all S loads in flight at once) and lane 0 adds them in rank order.
+//     No atomics: every CTA of the cluster gets the same statistics and
+//     repeats are bit-equal.  A split arrive/wait keeps every CTA's shared
+//     memory alive until the others have read it.
+//   * Output: swish((x - mean) * (rstd * gamma_c) + beta_c) from shared
+//     memory, in x's type, 16 bytes a thread: x is read once and y written
+//     once, in one launch (the first port: two launches, x read twice).
+//     exp and the division use the SFU's approximations (__expf,
+//     __fdividef; ~1e-6 relative): the accurate ones take several times
+//     the instructions, and here the activation runs after the loads
+//     instead of hiding behind them as in a streaming kernel.  (x - mean)
+//     is taken before the scale rather than folding mean into the shift (b
+//     = beta - mean * a): for a near-constant map with a large mean, a * x
+//     and mean * a are ~1e6 and their f32 difference would lose the result.
+//
+// gn_stats_kernel + gn_swish_apply_kernel: the shapes the plan does not
+// give the one-pass kernel (H*W not a multiple of the vector width; a group
+// larger than a cluster of 8 holds).
 //   * Stats: one block per (b, c) plane.  Threads stream the plane with
 //     16-byte loads, accumulate in fp32 registers, then reduce with a warp
-//     shuffle tree and a fixed-order pass over the warps' partials.  No
-//     atomics, so the sums are the same on every run.
+//     shuffle tree and a fixed-order pass over the warps' partials.
 //   * Apply: a 2-D grid of (plane, chunk of the plane).  Thread 0 of each
 //     block combines the C/G channel sums of its group into the group mean
-//     and rstd (the group is tiny, so every block recomputes it rather than
-//     paying a third launch), folds them with gamma into a = rstd * gamma,
-//     and every thread writes swish((x - mean) * a + beta) with 16-byte
-//     loads and stores.  (x - mean) is taken before the scale rather than
-//     folding mean into the shift (b = beta - mean * a): for a near-constant
-//     map with a large mean, a * x and mean * a are ~1e6 and their f32
-//     difference would lose the result.
-//   * Non-16-byte-aligned planes (H*W not a multiple of the vector width)
-//     take a scalar loop; the main path's shapes never do.
+//     and rstd, folds them with gamma into a = rstd * gamma, and every
+//     thread writes swish((x - mean) * a + beta).
+//   * Non-16-byte-aligned planes take a scalar loop.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -268,9 +301,181 @@ __global__ void gn_swish_apply_kernel(const T* __restrict__ x,
   }
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Spins until the phase of parity `parity` has completed; a wait that
+// never ends (a bug, not a slow copy) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0, spins = 0;
+  do {
+    if (++spins == (1u << 30)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+constexpr int kMaxShareBytes = 65536;  // a CTA's share of a group, at most
+constexpr int kBulkBytes = 16384;      // bytes of one bulk copy
+
+// One (b, group) per cluster of S CTAs; see the header.  n: 16-byte vectors
+// in a group (cg * hw / N); a rank's share is in dynamic shared memory.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    gn_swish_onepass_kernel(const T* __restrict__ x,
+                            const float* __restrict__ gamma,
+                            const float* __restrict__ beta,
+                            T* __restrict__ y, int C, int G, int hw, int n,
+                            float eps) {
+  constexpr int N = 16 / sizeof(T);
+  extern __shared__ __align__(16) int4 buf[];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ float ws[8], wq[8], part[2], stat[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int64_t grp = blockIdx.x / S;
+  const int cgs = C / G;
+  const int g = (int)(grp % G);
+  const int64_t base = (grp / G * C + (int64_t)g * cgs) * hw;
+  const int v0 = (int)((int64_t)n * rank / S);
+  const int cnt = (int)((int64_t)n * (rank + 1) / S) - v0;
+  const int4* px = reinterpret_cast<const int4*>(x + base) + v0;
+  int4* py = reinterpret_cast<int4*>(y + base) + v0;
+
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     smem_u32(&bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_u32(&bar)),
+        "r"(cnt * 16)
+        : "memory");
+    for (int off = 0; off < cnt * 16; off += kBulkBytes) {
+      const int bytes = min(kBulkBytes, cnt * 16 - off);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(buf) + off),
+          "l"(reinterpret_cast<const char*>(px) + off), "r"(bytes),
+          "r"(smem_u32(&bar))
+          : "memory");
+    }
+  }
+  __syncthreads();
+  mbar_wait(&bar, 0);
+
+  float s = 0.f, q = 0.f;
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    const int4 raw = buf[i];
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float f = to_f<T>(e[j]);
+      s += f;
+      q += f * f;
+    }
+  }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    ws[warp] = s;
+    wq[warp] = q;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    s = warp_sum(lane < nw ? ws[lane] : 0.f);
+    q = warp_sum(lane < nw ? wq[lane] : 0.f);
+    if (lane == 0) {
+      part[0] = s;
+      part[1] = q;
+    }
+  }
+  cluster.sync();
+  if (warp == 0) {
+    float ps = 0.f, pq = 0.f;
+    if (lane < S) {
+      const float* p = cluster.map_shared_rank(part, lane);
+      ps = p[0];
+      pq = p[1];
+    }
+    float ts = 0.f, tq = 0.f;  // rank order
+    for (int r = 0; r < S; ++r) {
+      ts += __shfl_sync(0xffffffffu, ps, r);
+      tq += __shfl_sync(0xffffffffu, pq, r);
+    }
+    if (lane == 0) {
+      const float count = (float)((int64_t)hw * cgs);
+      const float mean = ts / count;
+      const float var = fmaxf(tq / count - mean * mean, 0.f);
+      stat[0] = mean;
+      stat[1] = 1.f / sqrtf(var + eps);
+    }
+  }
+  // the others may leave once every CTA has read the partials
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  __syncthreads();
+  const float mean = stat[0], rstd = stat[1];
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    int4 raw = buf[i];
+    const int c = g * cgs + (v0 + i) * N / hw;
+    const float a = rstd * __ldg(gamma + c), shift = __ldg(beta + c);
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float v = (to_f<T>(e[j]) - mean) * a + shift;
+      e[j] = from_f<T>(__fdividef(v, 1.f + __expf(-v)));
+    }
+    py[i] = raw;
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 int vector_ok(const void* p, int64_t hw, int elem_bytes) {
   return (hw % (16 / elem_bytes)) == 0 &&
          (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T>
+cudaError_t launch_onepass(const void* x, const void* gamma,
+                           const void* beta, void* y, int groups, int C,
+                           int G, int hw, int n, float eps, int cluster,
+                           int threads, cudaStream_t s) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gn_swish_onepass_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShareBytes);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const int share = (n + cluster - 1) / cluster;  // vectors, at most
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(groups * cluster));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)share * 16;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gn_swish_onepass_kernel<T>,
+                            static_cast<const T*>(x),
+                            static_cast<const float*>(gamma),
+                            static_cast<const float*>(beta),
+                            static_cast<T*>(y), C, G, hw, n, eps);
 }
 
 }  // namespace
@@ -367,6 +572,36 @@ int sr3d_gn_swish_apply(const void* x, const void* sum, const void* sumsq,
         static_cast<const float*>(beta), static_cast<float*>(y), C, G, hw,
         eps, vec);
   }
+  return (int)cudaGetLastError();
+}
+
+// y = swish(groupnorm(x) * gamma + beta) in one launch, x read once.
+// x, y: [B, C, hw], 16-byte aligned, hw a multiple of the 16-byte vector;
+// gamma, beta: [C] fp32.  cluster (1, 2, 4, 8) and threads (a multiple of
+// 32, <= 256) come from gn_plan; a rank's share of a group is at most
+// 64 KB.  Returns the launch's cudaError_t.
+int sr3d_gn_swish_onepass(const void* x, const void* gamma, const void* beta,
+                          void* y, int batch, int C, int G, int hw, float eps,
+                          int cluster, int threads, int is_bf16,
+                          void* stream) {
+  const int N = is_bf16 ? 8 : 4;
+  if (batch < 1 || G < 1 || C % G || hw < 1 || hw % N ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      threads < 32 || threads > 256 || threads % 32 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) &
+       15))
+    return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)(C / G) * hw / N;
+  if ((n + cluster - 1) / cluster * 16 > kMaxShareBytes)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      is_bf16 ? launch_onepass<__nv_bfloat16>(x, gamma, beta, y, batch * G,
+                                              C, G, hw, (int)n, eps, cluster,
+                                              threads, s)
+              : launch_onepass<float>(x, gamma, beta, y, batch * G, C, G, hw,
+                                      (int)n, eps, cluster, threads, s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

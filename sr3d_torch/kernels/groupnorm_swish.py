@@ -6,6 +6,11 @@ and ``_gn_swish_pallas``).  Layout is NCHW; ``gn_stats`` also takes NHWC
 kernels live in ``csrc/groupnorm_swish.cu``; its header says what bounds
 them on an H100 and how the design handles it.
 
+``gn_plan`` picks ``gn_swish``'s kernel by shape: ``onepass`` (one launch,
+x read once, a cluster of CTAs per group holding it in shared memory) where
+a group fits, else ``two_pass`` (``gn_stats``, then the apply kernel).  It is
+pure Python, so the CPU tests hold its choices.
+
 ``gn_swish`` is differentiable: on CUDA a ``torch.autograd.Function`` runs
 the kernels forward and, backward, autograd of the plain version recomputed
 from the saved ``x`` (the JAX train step, too, differentiates its XLA
@@ -19,6 +24,7 @@ counts its kernel launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -27,6 +33,55 @@ from ._build import check, function
 _P = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NHWC_ROWS_PER_BLOCK = 256  # pixels one block of the NHWC stats kernel sums
+GN_THREADS = 256             # threads of a one-pass CTA, at most
+GN_SHARE_BYTES = 49152       # a CTA's share of a group, where it can be ...
+GN_CTA_BYTES = 65536         # ... and at most (the kernel's shared memory)
+GN_MAX_CLUSTER = 8           # the portable cluster size
+
+
+@dataclass(frozen=True)
+class GnPlan:
+    """How one ``gn_swish`` call runs on the card.  ``path`` is
+    ``"onepass"`` (``gn_swish_onepass_kernel``: a cluster of ``cluster``
+    CTAs of ``threads`` threads per (b, group), each rank holding its share
+    of the group's ``group_vectors`` 16-byte vectors in shared memory) or
+    ``"two_pass"`` (``gn_stats``, then ``gn_swish_apply_kernel``); ``why``
+    says why."""
+
+    path: str
+    why: str
+    cluster: int = 0
+    threads: int = 0
+    group_vectors: int = 0
+
+
+def gn_plan(B: int, C: int, G: int, HW: int, dtype: torch.dtype,
+            sm_count: int = 132) -> GnPlan:
+    """The kernel for NCHW x ``[B, C, H, W]`` (HW = H·W) in ``G`` groups on
+    a card with ``sm_count`` SMs.  The cluster grows (1, 2, 4, 8) while a
+    rank's share of a group exceeds ``GN_SHARE_BYTES``, or while there are
+    fewer than two CTAs an SM and a share keeps ≥ 8 KB; a CTA has a thread
+    per vector of its share, up to ``GN_THREADS``.  (Measured on the H100
+    with ``python -m sr3d_torch.profile_gn``: larger shares win while the
+    CTAs fill the card twice over.)"""
+    per_vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    if HW % per_vec:
+        return GnPlan("two_pass", f"H·W = {HW} is not a multiple of the "
+                                  f"{per_vec} values of a 16-byte vector")
+    n = C // G * HW // per_vec
+    S = 1
+    while S < GN_MAX_CLUSTER and (
+            16 * -(-n // S) > GN_SHARE_BYTES
+            or (B * G * S < 2 * sm_count and 16 * -(-n // S) >= 2 * 8192)):
+        S *= 2
+    share = -(-n // S)
+    if 16 * share > GN_CTA_BYTES:
+        return GnPlan("two_pass", f"a group of {16 * n} bytes exceeds a "
+                                  f"cluster of {GN_MAX_CLUSTER} CTAs' "
+                                  f"{GN_CTA_BYTES} bytes each")
+    T = min(GN_THREADS, 32 * -(-share // 32))
+    return GnPlan("onepass", f"{S} CTA(s) of {T} threads, {16 * share} "
+                             f"bytes each, per group", S, T, n)
 
 
 def gn_stats_reference(x: torch.Tensor, channels_last: bool = False
@@ -120,9 +175,41 @@ def gn_stats(x: torch.Tensor, channels_last: bool = False
 gn_stats.launches = 0
 
 
+def _launch_gn_swish(x: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, groups: int, eps: float,
+                     plan: GnPlan) -> torch.Tensor:
+    """Run ``plan``'s kernel(s) on inputs ``gn_swish`` has checked, without
+    counting a launch.  ``gn_swish`` passes ``gn_plan``'s plan; the tuning
+    sweep ``profile_gn`` times others."""
+    B, C, H, W = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    is_bf16 = _DTYPES[x.dtype]
+    if plan.path == "onepass":
+        if x.data_ptr() % 16:   # 16-byte loads; a view may start anywhere
+            x = x.clone()
+        y = torch.empty_like(x)
+        fn = function("groupnorm_swish", "sr3d_gn_swish_onepass",
+                      [_P] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                      + [ctypes.c_int] * 3 + [_P])
+        check(fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                 y.data_ptr(), B, C, groups, H * W, eps, plan.cluster,
+                 plan.threads, is_bf16, stream), "gn_swish")
+        return y
+    s, q = gn_stats(x)
+    y = torch.empty_like(x)
+    fn = function("groupnorm_swish", "sr3d_gn_swish_apply",
+                  [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+                   _P])
+    check(fn(x.data_ptr(), s.data_ptr(), q.data_ptr(), gamma.data_ptr(),
+             beta.data_ptr(), y.data_ptr(), B, C, groups, H * W, eps,
+             is_bf16, stream), "gn_swish")
+    return y
+
+
 def _gn_swish_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    groups: int, eps: float) -> torch.Tensor:
-    is_bf16 = _check_input(x, "gn_swish")
+    _check_input(x, "gn_swish")
     B, C, H, W = x.shape
     if C % groups:
         raise ValueError(f"gn_swish: {C} channels do not split into "
@@ -132,15 +219,10 @@ def _gn_swish_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                 or tuple(p.shape) != (C,) or not p.is_contiguous()):
             raise ValueError(f"gn_swish: {name} must be a contiguous fp32 "
                              f"[{C}] tensor on {x.device}")
-    s, q = gn_stats(x)
-    y = torch.empty_like(x)
-    fn = function("groupnorm_swish", "sr3d_gn_swish_apply",
-                  [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-                   _P])
-    check(fn(x.data_ptr(), s.data_ptr(), q.data_ptr(), gamma.data_ptr(),
-             beta.data_ptr(), y.data_ptr(), B, C, groups, H * W, eps, is_bf16,
-             torch.cuda.current_stream(x.device).cuda_stream), "gn_swish")
+    plan = gn_plan(B, C, groups, H * W, x.dtype,
+                   torch.cuda.get_device_properties(
+                       x.device).multi_processor_count)
+    y = _launch_gn_swish(x, gamma, beta, groups, eps, plan)
     gn_swish.launches += 1
     return y
 
@@ -171,8 +253,8 @@ class _GnSwish(torch.autograd.Function):
 def gn_swish(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              groups: int, eps: float = 1e-5) -> torch.Tensor:
     """``swish(GroupNorm(x)·γ + β)`` of NCHW ``x``, in ``x.dtype``;
-    ``gamma``/``beta`` are fp32 ``[C]``.  On CUDA: the stats kernel, then
-    the apply kernel; differentiable in x, γ and β."""
+    ``gamma``/``beta`` are fp32 ``[C]``.  On CUDA: the kernel ``gn_plan``
+    picks (one launch counted per call); differentiable in x, γ and β."""
     if x.device.type == "cpu":
         return gn_swish_reference(x, gamma, beta, groups, eps)
     return _GnSwish.apply(x, gamma, beta, groups, eps)

@@ -25,9 +25,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
-GROUPS = (("gn_stats (port)", ("gn_stats_kernel",)),
+GROUPS = (("gn_swish one-pass (port)", ("gn_swish_onepass_kernel",)),
+          ("gn_stats (port)", ("gn_stats_kernel",)),
           ("gn_swish apply (port)", ("gn_swish_apply_kernel",)),
-          ("attention (port)", ("attn_fwd_kernel",)),
+          ("attention (port)", ("attn_mma_kernel", "attn_fwd_kernel")),
           ("cuDNN NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
           ("convolution (cuDNN)", ("conv", "xmma", "implicit", "cutlass",
                                    "sm90", "gemm", "winograd")),

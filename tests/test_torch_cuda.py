@@ -19,10 +19,14 @@ from sr3d_torch.kernels import (
     reset_launch_counts,
     spatial_attention,
 )
-from sr3d_torch.kernels.attention import spatial_attention_reference
+from sr3d_torch.kernels.attention import (
+    attn_plan,
+    spatial_attention_reference,
+)
 from sr3d_torch.kernels.conv3x3 import conv3x3_reference
 from sr3d_torch.kernels.fused_block import fused_block_reference
 from sr3d_torch.kernels.groupnorm_swish import (
+    gn_plan,
     gn_stats_reference,
     gn_swish_reference,
 )
@@ -63,6 +67,10 @@ def _gn_inputs(shape, dtype, device, seed=0):
     ((2, 1024, 8, 8), 32),     # its deepest level
     ((2, 32, 8, 8), 8),        # the CPU tests' tiny UNet
     ((1, 16, 5, 7), 4),        # H*W not a multiple of the vector width
+    ((2, 32, 16, 16), 32),     # one channel a group
+    ((2, 96, 16, 16), 32),     # C not a multiple of 64: 3 channels a group
+    ((1, 192, 128, 128), 32),  # B = 1: clusters of 8
+    ((1, 512, 128, 128), 32),  # bf16: 64 KB a CTA; fp32: stats + apply
 ])
 def test_gn_kernels_match_plain(cuda, shape, groups, dtype):
     x, gamma, beta = _gn_inputs(shape, dtype, cuda)
@@ -78,10 +86,49 @@ def test_gn_kernels_match_plain(cuda, shape, groups, dtype):
         **TOL[dtype])
 
 
+# every GN width of the 16->128 UNet's levels, and the T=600 path's B = 1
+GN_MAIN_PATH = [(8, 192, 128, 128), (8, 64, 128, 128), (8, 384, 64, 64),
+                (8, 768, 32, 32), (8, 1024, 16, 16), (8, 1024, 8, 8),
+                (8, 512, 8, 8), (1, 64, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GN_MAIN_PATH)
+def test_gn_swish_one_pass_main_path_shapes(cuda, shape, dtype):
+    B, C, H, W = shape
+    assert gn_plan(B, C, 32, H * W, dtype).path == "onepass"
+    x, gamma, beta = _gn_inputs(shape, dtype, cuda, seed=2)
+    reset_launch_counts()
+    y = gn_swish(x, gamma, beta, 32)
+    torch.cuda.synchronize()
+    assert launch_counts()["gn_swish"] == 1
+    assert launch_counts()["gn_stats"] == 0
+    torch.testing.assert_close(
+        y.float(), gn_swish_reference(x, gamma, beta, 32).float(),
+        **TOL[dtype])
+
+
+def test_gn_swish_two_pass_for_a_group_larger_than_a_cluster(cuda):
+    """fp32 [1, 512, 128, 128]: a group of 1 MB, more than a cluster of 8
+    CTAs holds, with H·W a multiple of the vector width, so ``gn_plan``
+    gives the stats + apply pair and the apply kernel's 16-byte loads."""
+    shape = (1, 512, 128, 128)
+    assert gn_plan(1, 512, 32, 128 * 128, torch.float32).path == "two_pass"
+    x, gamma, beta = _gn_inputs(shape, torch.float32, cuda, seed=3)
+    reset_launch_counts()
+    y = gn_swish(x, gamma, beta, 32)
+    torch.cuda.synchronize()
+    assert launch_counts()["gn_swish"] == 1
+    assert launch_counts()["gn_stats"] == 1
+    torch.testing.assert_close(
+        y, gn_swish_reference(x, gamma, beta, 32), **TOL[torch.float32])
+
+
 def test_gn_near_constant_large_mean_is_finite(cuda):
     """The clamped one-pass variance keeps a constant bf16 map at a large
     magnitude finite; it normalises to ~swish(beta)."""
     C, G = 64, 32
+    assert gn_plan(1, C, G, 32 * 32, torch.bfloat16).path == "onepass"
     gamma = torch.ones(C, device=cuda)
     beta = torch.full((C,), 0.3, device=cuda)
     for c in (2285.4912, 1862.8314, 3861.9184):
@@ -93,8 +140,17 @@ def test_gn_near_constant_large_mean_is_finite(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 64, 512), (2, 256, 128), (2, 64, 32),
-                                   (1, 37, 40)])
+@pytest.mark.parametrize("shape", [
+    (8, 64, 512),    # the 16->128 mid block: clusters of 8
+    (1, 64, 512),    # the same at the T=600 path's B = 1
+    (2, 256, 128),   # four query tiles, clusters of 2
+    (8, 4, 512),     # the 16_32 configs' mid block: HW = 4
+    (2, 64, 32),     # one slice, no partner in the cluster
+    (1, 37, 40),     # ragged query, key and channel tiles
+    (1, 100, 200),   # a ragged last slice, clusters of 4
+    (1, 256, 1024),  # two slices a CTA
+    (2, 16, 36),     # bf16 with C % 8 != 0: the CUDA-core kernel
+])
 def test_attention_kernel_matches_plain(cuda, shape, dtype):
     g = torch.Generator(device="cpu").manual_seed(1)
     q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
@@ -116,7 +172,8 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
     conv3x3(xh, w)
     fused_gn_swish_conv3x3(xh, gamma, beta, w, torch.zeros(16, device=cuda),
                            8)
-    assert launch_counts() == {"gn_stats": 2, "gn_swish": 1,
+    # gn_swish: one launch, no gn_stats; the fused block's NHWC stats: one
+    assert launch_counts() == {"gn_stats": 1, "gn_swish": 1,
                                "spatial_attention": 1, "conv3x3": 1,
                                "fused_gn_swish_conv3x3": 1}
     with pytest.raises(TypeError):
@@ -133,8 +190,24 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
         fused_gn_swish_conv3x3(xh, gamma, beta, w, torch.zeros(16,
                                                                device=cuda),
                                5)
-    assert launch_counts()["gn_stats"] == 2
+    assert launch_counts()["gn_stats"] == 1
     assert launch_counts()["conv3x3"] == 1
+
+
+def test_gn_and_attention_repeat_bit_for_bit(cuda):
+    """The clusters add their partials in rank order, without atomics:
+    repeated calls give equal bits."""
+    x, gamma, beta = _gn_inputs((8, 192, 128, 128), torch.bfloat16, cuda)
+    assert gn_plan(8, 192, 32, 128 * 128, torch.bfloat16).cluster > 1
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v = (torch.randn(8, 64, 512, generator=g).bfloat16().to(cuda)
+               for _ in range(3))
+    assert attn_plan(64, 512, torch.bfloat16).cluster == 8
+    for fn in (lambda: gn_swish(x, gamma, beta, 32),
+               lambda: spatial_attention(q, k, v)):
+        first = fn()
+        for _ in range(3):
+            assert torch.equal(fn(), first)
 
 
 # The conv kernels sum the 9·C products in another order than cuDNN's fp32
