@@ -21,28 +21,42 @@ Phases, each printing its own lines; any failure exits non-zero:
    reductions, and the tensor-core instructions in the built attention and
    conv libraries; the GN+Swish and attention gradients against autograd of
    their plain versions; then the whole serving step and one whole train
-   step on a tiny config, on the GPU against the plain versions on the CPU;
+   step (model2, then model3 flow-through) on a tiny config, on the GPU
+   against the plain versions on the CPU, and model3's gradients on the
+   GPU with the hand-off's per-step checkpoints on and off;
 4. serving, DDIM-25 (η=1, marginal init) at the full width of
    ``configs/sr_sr3_VGGF2_16_128_model2.yml``, bf16, random weights from
    seed 0, synthetic FLAME at the real size: two requests (8 faces, then 3
-   with a padded tail), outputs checked, kernel launches counted;
+   with a padded tail), then one of 8 with DPM-Solver++(2M) (25 steps,
+   η=0, marginal init); outputs checked, kernel launches counted;
 5. serving, the ancestral loop at the config's T=600, one face;
 6. training, the model2 joint train step at the same full width (N = K×B
    = 4 synthetic faces, 16→128, remat, Adam/AdamW, EMA): three
    steps with the DDIM-25 hand-off, then one with the config's T=600
    ancestral hand-off; losses, parameter updates, the frozen prefix, the
-   EMA, step times, peak memory and kernel launches checked.
+   EMA, step times, peak memory and kernel launches checked;
+7. training, the model3 joint train step at the full width of
+   ``configs/sr_sr3_VGGF2_16_128_model3.yml`` (the same network, the
+   differentiable hand-off checkpointed per sampling step): three
+   flow-through steps with the DDIM-25 hand-off, the hand-off's forward
+   and backward alone, one flow-through step with the T=600 ancestral
+   hand-off, and one severed step from the first step's state and draws
+   (the same losses and MICA-branch updates, another UNet update); step
+   times, peak memory, the frozen prefix and kernel launches checked.
 
 The line before the last lists the kernels as JSON (top-level numbers at
 the widest main-path shape in bf16, the shapes above under ``shapes``,
-GN+Swish's slowest shape against the library call under ``main_path``);
-the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device and
-when the repository's ``sr3d_torch`` package is not beside this script.
+GN+Swish's slowest shape against the library call under ``main_path``;
+``launches`` from phase 4's DDIM-25 requests, ``train_launches`` from phase
+6's three steps, ``model3_launches`` from phase 7's three); the last line
+is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
+and when the repository's ``sr3d_torch`` package is not beside this script.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import shutil
@@ -59,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core rate
             torch.float32: 67e12}    # fp32 outside the tensor cores
 CONFIG = ROOT / "configs" / "sr_sr3_VGGF2_16_128_model2.yml"
+MODEL3 = ROOT / "configs" / "sr_sr3_VGGF2_16_128_model3.yml"
 TINY = ROOT / "configs" / "tiny_8_16_model2.yml"
 GN_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 8e-3)}
 ATTN_TOL = GN_TOL
@@ -571,25 +586,57 @@ def _leaf_ok(got: torch.Tensor, ref: torch.Tensor, rel: float) -> bool:
             and float(e.max()) <= 0.1 * scale + 1e-6)
 
 
-def phase_tiny_train(dev) -> None:
-    """One whole model2 train step on a tiny config (fp32, remat on,
-    dropout 0, N = 4, DDIM-4 hand-off): on the GPU through the kernels
-    against the CPU through the plain versions, same weights and draws."""
-    from sr3d_torch.config import get_cfg_defaults, update_cfg
-    from sr3d_torch.data.synthetic import synthetic_face_batch
-    from sr3d_torch.diffusion.gaussian import sample_continuous_gamma
-    from sr3d_torch.diffusion.schedules import schedule_from_config
+def _net_max(grads: dict) -> dict:
+    """Each network's largest gradient entry, over ``"net.leaf"`` keys."""
+    out: dict = {}
+    for n, g_ in grads.items():
+        net = n.split(".")[0]
+        out[net] = max(out.get(net, 0.0), float(g_.abs().max()))
+    return out
+
+
+def _tiny_train_step(cfg, d, batch, draws, **replace) -> tuple:
+    """One train step of the tiny config on device ``d`` from the weights
+    of seed 3: (losses, gradients, parameters after, lrs, launches)."""
     from sr3d_torch.kernels import launch_counts, reset_launch_counts
-    from sr3d_torch.ops.image import degrade_pair
     from sr3d_torch.train.joint import (
         build_joint,
         init_train_state,
         make_train_step,
     )
 
+    mods = dataclasses.replace(build_joint(cfg, device=d, init_seed=3),
+                               **replace)
+    state = init_train_state(mods, cfg)
+    reset_launch_counts()
+    state, met = make_train_step(cfg.sr.train.ema_scheduler)(
+        mods, state, batch, draws=draws)
+    counts = launch_counts()
+    nets = {"sr": mods.unet, "arcface": mods.arcface, "mapping": mods.mapping}
+    return ({k: float(v) for k, v in met.items()},
+            {f"{p}.{n}": t.grad.cpu() for p, net in nets.items()
+             for n, t in net.named_parameters() if t.grad is not None},
+            {f"{p}.{n}": t.detach().cpu() for p, net in nets.items()
+             for n, t in net.named_parameters()},
+            {g_["name"]: g_["lr"] for g_ in state.opt.param_groups}, counts)
+
+
+def phase_tiny_train(dev) -> None:
+    """One whole train step on a tiny config (fp32, remat on, dropout 0,
+    N = 4, DDIM-4 hand-off), model2 and model3 flow-through: on the GPU
+    through the kernels against the CPU through the plain versions, same
+    weights and draws; then model3's gradients on the GPU with the
+    hand-off's per-step checkpoints on and off."""
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    from sr3d_torch.data.synthetic import synthetic_face_batch
+    from sr3d_torch.diffusion.gaussian import sample_continuous_gamma
+    from sr3d_torch.diffusion.schedules import schedule_from_config
+    from sr3d_torch.ops.image import degrade_pair
+
     cfg = update_cfg(get_cfg_defaults(), str(TINY))
     cfg.tpu.compute_dtype = "float32"
     cfg.tpu.train_remat = True
+    cfg.tpu.sample_remat = True
     cfg.mica.model.arcface_layers = [1, 1, 1, 1]
     cfg.mica.train.use_mask = True
     cfg.sr.model.diffusion.train_sampler = "ddim"
@@ -604,74 +651,111 @@ def phase_tiny_train(dev) -> None:
     draws = {"gamma": gamma, "noise": torch.randn(4, 3, 16, 16, generator=g),
              "handoff": [torch.randn(4, 3, 16, 16, generator=g)
                          for _ in range(5)]}
-    res = {}
-    for d in ("cpu", dev):
-        mods = build_joint(cfg, device=d, init_seed=3)
-        state = init_train_state(mods, cfg)
-        reset_launch_counts()
-        state, met = make_train_step(cfg.sr.train.ema_scheduler)(
-            mods, state, batch, draws=draws)
-        counts = launch_counts()
-        nets = {"sr": mods.unet, "arcface": mods.arcface,
-                "mapping": mods.mapping}
-        res[str(d)] = (
-            {k: float(v) for k, v in met.items()},
-            {f"{p}.{n}": t.grad.cpu() for p, net in nets.items()
-             for n, t in net.named_parameters() if t.grad is not None},
-            {f"{p}.{n}": t.detach().cpu() for p, net in nets.items()
-             for n, t in net.named_parameters()},
-            {g_["name"]: g_["lr"] for g_ in state.opt.param_groups})
-    (m_c, g_c, p_c, lrs), (m_g, g_g, p_g, _) = res["cpu"], res[str(dev)]
-    # l_sr: fp32 sums in other orders; l_mica follows the uint8 hand-off,
-    # where a value on a rounding tie may land one level apart
-    require(abs(m_g["l_sr"] - m_c["l_sr"]) <= 1e-5 * abs(m_c["l_sr"]),
-            f"tiny train step l_sr {m_g['l_sr']} vs {m_c['l_sr']}")
-    require(abs(m_g["l_mica"] - m_c["l_mica"]) <= 1e-3 * abs(m_c["l_mica"]),
-            f"tiny train step l_mica {m_g['l_mica']} vs {m_c['l_mica']}")
-    require(g_c.keys() == g_g.keys(), "tiny train step gradient leaves")
-    # A leaf whose true gradient is 0 (a bias ahead of a batch-statistics
-    # BatchNorm, e.g. ArcFace's fc.bias before "features") holds rounding
-    # noise only: ~1e-7 on the CPU against leaves of ~1, and on the card
-    # noise near _leaf_ok's 1e-6 floor.  Such a leaf (below 1e-5 of its
-    # network's largest) is held to that rounding level on the card too.
-    net_max = {}
-    for n, g_ in g_c.items():
-        net = n.split(".")[0]
-        net_max[net] = max(net_max.get(net, 0.0), float(g_.abs().max()))
-    zero = {n for n, g_ in g_c.items()
-            if float(g_.abs().max()) < 1e-5 * net_max[n.split(".")[0]]}
-    bad = [n for n in g_c if not (
-        float(g_g[n].abs().max()) <= 1e-5 * net_max[n.split(".")[0]]
-        if n in zero else
-        _leaf_ok(g_g[n], g_c[n], 1e-4 if n.startswith("sr.") else 5e-2))]
-    require(not bad, f"tiny train step gradients disagree: {bad[:5]}")
-    worst = max(float((g_g[n] - g_c[n]).abs().max())
-                / (float(g_c[n].abs().max()) + 1e-12)
-                for n in g_c if n.startswith("sr."))
-    off = 0
-    for n, p in p_c.items():
-        d_ = (p_g[n] - p).abs()
-        require(float(d_.max()) <= 2 * lrs[n.split(".")[0]] + 1e-6,
-                f"tiny train step parameter {n} off by {float(d_.max())}")
-        off += int((d_ > 1e-6).sum())
-    total = sum(p.numel() for p in p_c.values())
-    require(off <= 0.01 * total, f"tiny step: {off} parameters apart")
     # the tiny UNet: 8 checkpointed blocks (16 GN, 4 attention) + the final
-    # GN per forward; 4 hand-off forwards, the loss forward and the blocks'
-    # recompute in the backward
-    want = {"gn_stats": 0, "gn_swish": 4 * 17 + 17 + 16,
-            "spatial_attention": 4 * 4 + 4 + 4, "conv3x3": 0,
-            "fused_gn_swish_conv3x3": 0}
-    require(counts == want, f"tiny train step launches {counts}, want {want}")
-    print(f"  tiny train step, GPU kernels vs CPU plain (fp32, remat, N=4): "
-          f"l_sr {m_g['l_sr']:.6f} vs {m_c['l_sr']:.6f}, l_mica "
-          f"{m_g['l_mica']:.5f} vs {m_c['l_mica']:.5f}; UNet gradients "
-          f"within {worst:.2g} of each leaf's max (bound 1e-4), MICA within "
-          f"5e-2, {len(zero)} zero-gradient leaves within 1e-5 of their "
-          f"network's largest; {off}/{total} parameters apart by >1e-6 "
-          f"after the step; "
-          f"launches {counts} (GN+Swish 4x17 hand-off + 17 loss + 16 "
-          f"recompute, one launch each)")
+    # GN per forward.  model2: 4 hand-off forwards, the loss forward and the
+    # blocks' recompute in the backward; model3 also recomputes each of the
+    # 4 checkpointed hand-off steps once
+    want = {"model2": {"gn_swish": 4 * 17 + 17 + 16,
+                       "spatial_attention": 4 * 4 + 4 + 4},
+            "model3": {"gn_swish": 2 * 4 * 17 + 17 + 16,
+                       "spatial_attention": 2 * 4 * 4 + 4 + 4}}
+    for variant in ("model2", "model3"):
+        cfg.model = variant
+        (m_c, g_c, p_c, lrs, _), (m_g, g_g, p_g, _, counts) = (
+            _tiny_train_step(cfg, d, batch, draws) for d in ("cpu", dev))
+        # l_sr: fp32 sums in other orders; model2's l_mica follows the
+        # uint8 hand-off, where a value on a rounding tie may land one level
+        # apart; model3's hand-off is continuous
+        tol_mica = 1e-3 if variant == "model2" else 1e-4
+        require(abs(m_g["l_sr"] - m_c["l_sr"]) <= 1e-5 * abs(m_c["l_sr"]),
+                f"tiny {variant} step l_sr {m_g['l_sr']} vs {m_c['l_sr']}")
+        require(abs(m_g["l_mica"] - m_c["l_mica"])
+                <= tol_mica * abs(m_c["l_mica"]),
+                f"tiny {variant} step l_mica {m_g['l_mica']} vs "
+                f"{m_c['l_mica']}")
+        require(g_c.keys() == g_g.keys(), f"tiny {variant} gradient leaves")
+        # A leaf whose true gradient is 0 (a bias ahead of a batch-statistics
+        # BatchNorm, e.g. ArcFace's fc.bias before "features") holds rounding
+        # noise only: ~1e-7 on the CPU against leaves of ~1, and on the card
+        # noise near _leaf_ok's 1e-6 floor.  Such a leaf (below 1e-5 of its
+        # network's largest) is held to that rounding level on the card too.
+        net_max = _net_max(g_c)
+        zero = {n for n, g_ in g_c.items()
+                if float(g_.abs().max()) < 1e-5 * net_max[n.split(".")[0]]}
+        # model2's MICA gradients follow the uint8 image (5e-2); model3's
+        # MICA leaves next to ArcFace's batch-statistics BatchNorms hold
+        # rounding noise as in model2 (5e-2: on the CPU, 1 thread against 8
+        # moves them by 2e-3).  model3's UNet gradients carry l_mica's back
+        # through ArcFace and the sampling chain, where fp32 rounding grows
+        # (the CPU against itself moves small leaves by 1e-3 of their own
+        # largest entry): each leaf within 1e-3 of the UNet's largest
+        # entry, as tests/test_torch_model3_step.py holds it to JAX
+        rel = {"sr": 1e-4, "arcface": 5e-2, "mapping": 5e-2}
+
+        def leaf_ok(n: str) -> bool:
+            net = n.split(".")[0]
+            if n in zero:
+                return float(g_g[n].abs().max()) <= 1e-5 * net_max[net]
+            if variant == "model3" and net == "sr":
+                return (float((g_g[n] - g_c[n]).abs().max())
+                        <= 1e-3 * net_max[net])
+            return _leaf_ok(g_g[n], g_c[n], rel[net])
+
+        bad = [n for n in g_c if not leaf_ok(n)]
+        worst = {net: max(float((g_g[n] - g_c[n]).abs().max())
+                          / (float(g_c[n].abs().max()) + 1e-12)
+                          for n in g_c if n.startswith(net + ".")
+                          and n not in zero) for net in rel}
+        require(not bad, f"tiny {variant} step gradients disagree: "
+                         f"{bad[:5]}; worst relative to each leaf's max "
+                         f"{worst}")
+        off = 0
+        for n, p in p_c.items():
+            d_ = (p_g[n] - p).abs()
+            require(float(d_.max()) <= 2 * lrs[n.split(".")[0]] + 1e-6,
+                    f"tiny {variant} parameter {n} off by {float(d_.max())}")
+            off += int((d_ > 1e-6).sum())
+        total = sum(p.numel() for p in p_c.values())
+        require(off <= 0.01 * total, f"tiny {variant}: {off} parameters "
+                                     f"apart")
+        want_v = dict(want[variant], gn_stats=0, conv3x3=0,
+                      fused_gn_swish_conv3x3=0)
+        require(counts == want_v,
+                f"tiny {variant} launches {counts}, want {want_v}")
+        unet_err = max(float((g_g[n] - g_c[n]).abs().max()) for n in g_c
+                       if n.startswith("sr.")) / net_max["sr"]
+        bounds = (rel if variant == "model2" else
+                  dict(rel, sr="1e-3 of the UNet's largest entry"))
+        print(f"  tiny {variant} train step, GPU kernels vs CPU plain (fp32, "
+              f"remat, N=4): l_sr {m_g['l_sr']:.6f} vs {m_c['l_sr']:.6f}, "
+              f"l_mica {m_g['l_mica']:.5f} vs {m_c['l_mica']:.5f}; gradients"
+              f" within { {k: f'{v:.2g}' for k, v in worst.items()} } of "
+              f"each leaf's max, UNet within {unet_err:.2g} of its largest "
+              f"entry (bounds {bounds}), {len(zero)} zero-gradient "
+              f"leaves within 1e-5 of their network's largest; {off}/{total} "
+              f"parameters apart by >1e-6 after the step; launches {counts}")
+    # model3 on the card: the hand-off's per-step checkpoints change where
+    # the UNet runs again, not the gradients.  Deterministic algorithms
+    # (cuDNN's included), so that the two runs sum in the same order
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [_tiny_train_step(cfg, dev, batch, draws, sample_remat=r)[1]
+                for r in (True, False)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    require(runs[0].keys() == runs[1].keys(), "sample_remat leaves")
+    net_max = _net_max(runs[0])
+    # each leaf against its largest entry, a zero-gradient leaf (as above)
+    # against 1e-5 of its network's largest
+    e = max(float((runs[1][n] - g_).abs().max())
+            / max(float(g_.abs().max()), 1e-5 * net_max[n.split(".")[0]])
+            for n, g_ in runs[0].items())
+    require(e <= 1e-6,
+            f"tiny model3 gradients with and without sample_remat: {e}")
+    print(f"  tiny model3 step on the GPU, sample_remat on vs off: gradients "
+          f"within {e:.2g} of each leaf's max (bound 1e-6)")
 
 
 def phase_tiny_slice(dev) -> None:
@@ -746,24 +830,15 @@ def serve(p, lr) -> tuple[dict, float]:
     return out, time.perf_counter() - t0
 
 
-def phase_training(dev, flame) -> tuple[dict, dict]:
-    """The model2 joint train step at the flagship config's full width:
-    three steps with the DDIM-25 hand-off, then one with the T=600
-    ancestral hand-off.  Returns the kernel launches of the three DDIM
-    steps and of the T=600 step."""
+def train_setup(config: Path):
+    """A flagship config in bf16 with the DDIM-25 hand-off, and its train
+    batch: N = K×B synthetic faces (seed 0), their bicubic conditioning,
+    random FLAME shapes."""
     from sr3d_torch.config import get_cfg_defaults, update_cfg
     from sr3d_torch.data.synthetic import synthetic_face_batch
-    from sr3d_torch.diffusion.gaussian import ddim_sample_loop
-    from sr3d_torch.kernels import launch_counts, reset_launch_counts
-    from sr3d_torch.models.arcface import FROZEN_PREFIX_SCOPES
     from sr3d_torch.ops.image import degrade_pair
-    from sr3d_torch.train.joint import (
-        build_joint,
-        init_train_state,
-        make_train_step,
-    )
 
-    cfg = update_cfg(get_cfg_defaults(), str(CONFIG))
+    cfg = update_cfg(get_cfg_defaults(), str(config))
     cfg.tpu.compute_dtype = "bfloat16"
     d = cfg.sr.model.diffusion
     d.train_sampler, d.train_ddim_steps = "ddim", 25
@@ -772,9 +847,29 @@ def phase_training(dev, flame) -> tuple[dict, dict]:
               int(cfg.sr.datasets.train.r_resolution))
     hr = torch.from_numpy(synthetic_face_batch(n, hi, seed=0))
     g = torch.Generator().manual_seed(0)
-    batch = {"HR": hr, "SR": degrade_pair(hr, lo, hi)[1],
-             "flame_shape": torch.randn(n, int(cfg.mica.model.n_shape),
-                                        generator=g) * 0.3}
+    return cfg, {"HR": hr, "SR": degrade_pair(hr, lo, hi)[1],
+                 "flame_shape": torch.randn(n, int(cfg.mica.model.n_shape),
+                                            generator=g) * 0.3}
+
+
+def phase_training(dev, flame) -> tuple[dict, dict]:
+    """The model2 joint train step at the flagship config's full width:
+    three steps with the DDIM-25 hand-off, then one with the T=600
+    ancestral hand-off.  Returns the kernel launches of the three DDIM
+    steps and of the T=600 step."""
+    from sr3d_torch.diffusion.gaussian import ddim_sample_loop
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.models.arcface import FROZEN_PREFIX_SCOPES
+    from sr3d_torch.train.joint import (
+        build_joint,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg, batch = train_setup(CONFIG)
+    n = batch["HR"].shape[0]
+    lo, hi = (int(cfg.sr.datasets.train.l_resolution),
+              int(cfg.sr.datasets.train.r_resolution))
     mods = build_joint(cfg, flame=flame, init_seed=0, device=dev)
     state = init_train_state(mods, cfg)
     step = make_train_step(cfg.sr.train.ema_scheduler)
@@ -863,7 +958,179 @@ def phase_training(dev, flame) -> tuple[dict, dict]:
     return ddim_counts, anc_counts
 
 
+def phase_model3(dev, flame) -> dict:
+    """The model3 joint train step at the full width of
+    ``configs/sr_sr3_VGGF2_16_128_model3.yml``: (a) three flow-through
+    steps with the DDIM-25 hand-off; the hand-off's forward and backward
+    alone; (c) one flow-through step with the config's T=600 ancestral
+    hand-off; (b) one severed step from (a)'s first state and draws.
+    Returns the kernel launches of the three (a) steps."""
+    from sr3d_torch.diffusion.gaussian import (
+        ddim_sample_loop,
+        sample_continuous_gamma,
+    )
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.models.arcface import FROZEN_PREFIX_SCOPES
+    from sr3d_torch.train.joint import (
+        build_joint,
+        frozen_prefix_mask,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg, batch = train_setup(MODEL3)
+    n, hi = batch["HR"].shape[0], batch["HR"].shape[1]
+    mods = build_joint(cfg, flame=flame, init_seed=0, device=dev)
+    require(mods.variant == "model3" and mods.sample_remat
+            and not mods.sever_sr_grad, "the model3 config's hand-off")
+    nets = {"sr": mods.unet, "arcface": mods.arcface,
+            "mapping": mods.mapping}
+    # snapshots on the host, so that max_memory_allocated is the steps'
+    start = {k: {n_: v.to("cpu", copy=True)
+                 for n_, v in net.state_dict().items()}
+             for k, net in nets.items()}
+    state = init_train_state(mods, cfg)
+    step = make_train_step(cfg.sr.train.ema_scheduler)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T = mods.sched_train.num_timesteps
+    shape = (n, 3, hi, hi)
+    _, gamma = sample_continuous_gamma(mods.sched_train, n, generator=gen,
+                                       device=dev)
+    draws1 = {"gamma": gamma,
+              "noise": torch.randn(shape, generator=gen, device=dev),
+              "handoff": [torch.randn(shape, generator=gen, device=dev)
+                          for _ in range(26)]}
+    prefix = {k: v.clone() for k, v in mods.arcface.state_dict().items()
+              if k.split(".")[0] in FROZEN_PREFIX_SCOPES}
+    trainable = frozen_prefix_mask(mods.arcface)
+
+    def params() -> dict:
+        return {k: {n_: p.detach().to("cpu", copy=True)
+                    for n_, p in net.named_parameters()
+                    if k != "arcface" or trainable[n_]}
+                for k, net in nets.items()}
+
+    def run(m, st, draws=None) -> tuple[float, float, dict, dict]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, met = step(m, st, batch, generator=gen, draws=draws)
+        out = {k: float(v) for k, v in met.items()}   # waits for the step
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        require(all(math.isfinite(v) for v in out.values()),
+                f"model3 losses not finite: {out}")
+        now = mods.arcface.state_dict()
+        require(all(torch.equal(now[k], v) for k, v in prefix.items()),
+                "the frozen ArcFace prefix (weights or BN statistics) moved")
+        return dt, torch.cuda.max_memory_allocated() / 2 ** 30, out, counts
+
+    n_unet = sum(p.numel() for p in mods.unet.parameters()) / 1e6
+    print(f"[7] model3 train step ({MODEL3.name}), N={n} faces, unet "
+          f"{n_unet:.1f}M params, flow-through (handoff_grad_scale "
+          f"{mods.handoff_grad_scale}), per-step hand-off checkpoints, "
+          f"block remat {mods.unet.remat}, {mods.unet.dtype} activations")
+    # (a) three flow-through steps, DDIM-25 hand-off
+    p0 = params()
+    a = [run(mods, state, draws1)]
+    p1 = params()
+    a += [run(mods, state) for _ in range(2)]
+    a_counts = {k: sum(r[3][k] for r in a) for k in a[0][3]}
+    # the hand-off alone, as the step runs it: forward on the tape with a
+    # checkpoint per step, then the backward of a scalar of the sample
+    cond = batch["SR"].to(dev).permute(0, 3, 1, 2).contiguous()
+    denoise = functools.partial(mods.unet, remat=False)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = ddim_sample_loop(denoise, mods.sched_train, cond, num_steps=25,
+                             eta=1.0, init="marginal", generator=gen,
+                             differentiable=True, remat=True)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    final.square().sum().backward()
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0 - t_fwd
+    hand_counts = launch_counts()
+    state.opt.zero_grad(set_to_none=True)
+    del final
+    # (c) the reference's recipe: flow-through through the T-step loop
+    c = run(dataclasses.replace(mods, train_sampler="ddpm"), state)
+    # (b) severed, from (a)'s first state and draws
+    for k, net in nets.items():
+        net.load_state_dict(start[k])
+    sev = dataclasses.replace(mods, sever_sr_grad=True)
+    b = run(sev, init_train_state(sev, cfg), draws1)
+    pb = params()
+
+    for i, (dt, mem, m, _) in enumerate(a):
+        print(f"    (a) step {i + 1} (DDIM-25 hand-off, flow-through): "
+              f"{dt:.3f} s, peak {mem:.2f} GiB, l_sr {m['l_sr']:.5f} "
+              f"l_mica {m['l_mica']:.3f}")
+    print(f"    hand-off alone (DDIM-25, N={n}): forward {t_fwd:.3f} s, "
+          f"backward {t_bwd:.3f} s (checkpoint recompute + backward)")
+    print(f"    (b) severed step from (a)'s first state and draws: "
+          f"{b[0]:.3f} s, peak {b[1]:.2f} GiB, l_sr {b[2]['l_sr']:.5f} "
+          f"l_mica {b[2]['l_mica']:.3f}")
+    print(f"    (c) T={T} ancestral hand-off, flow-through: {c[0]:.3f} s, "
+          f"peak {c[1]:.2f} GiB, l_sr {c[2]['l_sr']:.5f} l_mica "
+          f"{c[2]['l_mica']:.3f}")
+    # (b) against (a) step 1: the same forward, so the same losses and
+    # MICA-branch updates (bf16 activations); the UNet's update differs by
+    # l_mica's gradient through the hand-off
+    for k in ("l_sr", "l_mica"):
+        require(abs(b[2][k] - a[0][2][k]) <= 1e-2 * abs(a[0][2][k]),
+                f"severed {k} {b[2][k]} vs flow-through {a[0][2][k]}")
+    # Adam's first update is lr·g/(|g| + ε) ≈ lr·sign(g): the two updates
+    # differ where the gradients' signs do, so count those elements; a
+    # gradient at rounding level may flip (as in the parity tests: 1%)
+    apart = {}
+    for k in nets:
+        d_a = torch.cat([(p1[k][n_] - p0[k][n_]).flatten() for n_ in p0[k]])
+        d_b = torch.cat([(pb[k][n_] - p0[k][n_]).flatten() for n_ in p0[k]])
+        apart[k] = float(((d_b - d_a).abs() > 1e-6).float().mean())
+    require(apart["arcface"] <= 1e-2 and apart["mapping"] <= 1e-2,
+            f"severed MICA-branch updates differ from flow-through's: "
+            f"{apart}")
+    require(apart["sr"] >= 1e-2,
+            f"severed UNet update equals flow-through's: {apart['sr']}")
+    print(f"    severed vs flow-through step 1: |l_sr diff| "
+          f"{abs(b[2]['l_sr'] - a[0][2]['l_sr']):.3g}, |l_mica diff| "
+          f"{abs(b[2]['l_mica'] - a[0][2]['l_mica']):.3g}; share of "
+          f"elements whose updates differ by >1e-6: UNet {apart['sr']:.3g} "
+          f"(must be >= 1e-2), ArcFace {apart['arcface']:.3g}, mapping "
+          f"{apart['mapping']:.3g} (bound 1e-2); frozen ArcFace prefix "
+          f"unchanged in every step")
+    # 27 checkpointed ResnetBlocWithAttn (54 GN, the mid attention) + the
+    # final GN per forward.  The loss forward and its blocks' recompute;
+    # each hand-off step forward once and, flow-through, recomputed once
+    # in the backward
+    per = {"gn_swish": 55, "spatial_attention": 1}
+    rec_ = {"gn_swish": 54, "spatial_attention": 1}
+
+    def want(steps: int, recomputed: int, reps: int = 1) -> dict:
+        w = {k: reps * ((1 + steps + recomputed) * per[k] + rec_[k])
+             for k in per}
+        return dict(w, gn_stats=0, conv3x3=0, fused_gn_swish_conv3x3=0)
+
+    for what, got, w in (("(a)", a_counts, want(25, 25, 3)),
+                         ("(b)", b[3], want(25, 0)),
+                         ("(c)", c[3], want(T, T)),
+                         ("hand-off alone", hand_counts,
+                          dict(want(25, 25), gn_swish=50 * 55,
+                               spatial_attention=50))):
+        require(got == w, f"model3 {what} launches {got}, want {w}")
+    print(f"    launches: (a) 3 steps {a_counts}; (b) {b[3]}; (c) {c[3]} "
+          f"(GN+Swish, one launch each: (1 + 2 x hand-off steps) x 55 + 54 "
+          f"flow-through, (1 + steps) x 55 + 54 severed)")
+    print(f"    {smi_line()}")
+    return a_counts
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -941,6 +1208,24 @@ def main() -> int:
           f"each, 25 attention)")
     del p
 
+    # 4b. serving, DPM-Solver++(2M), 25 steps, η = 0
+    p = Predictor.from_config(serving_cfg("dpm++"), init_seed=0,
+                              batch_size=8, flame=flame)
+    require((p.modules.val_sampler, p.modules.dpmpp_eta) == ("dpm++", 0.0),
+            "the dpm++ predictor's sampler")
+    reset_launch_counts()
+    out_d, t_d = serve(p, req_a)
+    dpm_counts = launch_counts()
+    check_outputs(out_d, 8, 5023, 300)
+    require(dpm_counts == {"gn_stats": 0, "gn_swish": 55 * 25,
+                           "spatial_attention": 25, "conv3x3": 0,
+                           "fused_gn_swish_conv3x3": 0},
+            f"dpm++ launches {dpm_counts}")
+    print(f"    dpm++ (2M, eta 0, marginal init, 25 steps), request of 8: "
+          f"{t_d * 1e3:.1f} ms = {8 / t_d:.2f} faces/s; outputs finite, "
+          f"shapes and dtypes right; launches {dpm_counts}")
+    del p
+
     # 5. serving, ancestral T=600
     cfg = serving_cfg("ddpm")
     p = Predictor.from_config(cfg, init_seed=0, batch_size=1, flame=flame)
@@ -960,6 +1245,9 @@ def main() -> int:
     del p
     train_counts, _ = phase_training(dev, flame)
 
+    # 7. model3 training, full width
+    model3_counts = phase_model3(dev, flame)
+
     kernels = []
     meta = {
         "gn_stats": ("sr3d_torch/kernels/csrc/groupnorm_swish.cu",
@@ -969,15 +1257,16 @@ def main() -> int:
         "spatial_attention": ("sr3d_torch/kernels/csrc/attention.cu",
                               "sr3d_tpu/kernels/attention.py:48"),
         "fused_gn_swish_conv3x3": ("sr3d_torch/kernels/csrc/conv3x3.cu",
-                                   "sr3d_tpu/kernels/fused_block.py:91"),
+                                   "sr3d_tpu/kernels/fused_block.py:94"),
         "conv3x3": ("sr3d_torch/kernels/csrc/conv3x3.cu",
-                    "sr3d_tpu/kernels/conv3x3.py:60"),
+                    "sr3d_tpu/kernels/conv3x3.py:61"),
     }
     for name, (src, replaces) in meta.items():
         r = rec[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": ddim_counts[name],
                         "train_launches": train_counts[name],
+                        "model3_launches": model3_counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -985,6 +1274,8 @@ def main() -> int:
                         "shapes": r["shapes"]})
         if "main_path" in r:
             kernels[-1]["main_path"] = r["main_path"]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
-"""Gaussian diffusion: the SR3 training loss, the ancestral loop and DDIM
-(NCHW).
+"""Gaussian diffusion: the SR3 training loss and the samplers (ancestral,
+DDIM, DPM-Solver++), NCHW.
 
 Counterpart of ``sr3d_tpu/diffusion/gaussian.py``: ``q_sample_gamma``,
 ``sample_continuous_gamma`` and ``p_losses_continuous`` for training, and
-the no-grad samplers.  The training draws (t, γ, noise) come from a
+the samplers.  The training draws (t, γ, noise) come from a
 ``torch.Generator`` or are passed in, so a test can replay the JAX
 package's ``split`` draws.
 
-The loops are plain Python loops under ``torch.no_grad()`` that call the
-UNet once per step; every step shares one timestep across the batch, so the
-schedule scalars are read on the host (``np.float32`` arithmetic, as the JAX
-package computes them in float32).
+The loops are plain Python loops that call the UNet once per step; every
+step shares one timestep across the batch, so the schedule scalars are read
+on the host (``np.float32`` arithmetic, as the JAX package computes them in
+float32).  They run under ``torch.no_grad()`` unless ``differentiable``
+(the ancestral loop and DDIM, for model3's hand-off), where each step, or
+each chunk of steps, is a non-reentrant checkpoint when ``remat``.
 
 Noise comes either from a ``torch.Generator`` or from an explicit sequence
 ``noise``: ``noise[0]`` is the initial N(0, 1) draw (the state x_T for
@@ -23,11 +25,14 @@ continuous noise level γ ``[B, 1]`` and returns the predicted noise.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.image import clip
 from .schedules import DiffusionSchedule
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -128,7 +133,7 @@ def p_mean_variance(denoise: DenoiseFn, sched: DiffusionSchedule,
     eps = denoise(net_in, _noise_level(sched, x, t))
     x_recon = predict_start_from_noise(sched, x, t, eps.float())
     if clip_denoised:
-        x_recon = x_recon.clamp(-1.0, 1.0)
+        x_recon = clip(x_recon, -1.0, 1.0)
     return q_posterior(sched, x_recon, x, t)
 
 
@@ -161,27 +166,63 @@ def _sampler_init(sched: DiffusionSchedule, noise: torch.Tensor, init: str,
             + float(np.sqrt(np.float32(1.0) - a_T)) * noise)
 
 
-@torch.no_grad()
+def _run_steps(step: Callable[..., torch.Tensor], img: torch.Tensor,
+               n: int, draw: Callable[[], torch.Tensor], *,
+               differentiable: bool, remat: bool, remat_chunk: int,
+               what: str) -> torch.Tensor:
+    """``img = step(k, img, z_k)`` for k = 0 .. n−1, ``z_k`` the k-th
+    per-step draw.  With ``differentiable`` and ``remat``, each run of
+    ``remat_chunk`` steps is one non-reentrant ``torch.utils.checkpoint``
+    (the chunk must divide ``n``).  The chunk's draws are made before its
+    checkpointed call and passed in: the recompute restores only the global
+    RNG, never an explicit generator, so a draw inside would give the
+    backward another trajectory than the one sampled."""
+    ckpt = differentiable and remat
+    chunk = int(remat_chunk) if ckpt else 1
+    if chunk < 1 or n % chunk:
+        raise ValueError(f"remat_chunk {chunk} must divide {what}={n}")
+
+    def run(k0: int, img: torch.Tensor, *zs: torch.Tensor) -> torch.Tensor:
+        for j, z in enumerate(zs):
+            img = step(k0 + j, img, z)
+        return img
+
+    for k0 in range(0, n, chunk):
+        zs = [draw() for _ in range(chunk)]
+        img = (checkpoint(run, k0, img, *zs, use_reentrant=False) if ckpt
+               else run(k0, img, *zs))
+    return img
+
+
 def p_sample_loop(denoise: DenoiseFn, sched: DiffusionSchedule,
                   x_in: torch.Tensor, *,
                   generator: torch.Generator | None = None,
                   noise: Sequence[torch.Tensor] | None = None,
                   conditional: bool = True, clip_denoised: bool = True,
-                  init: str = "noise") -> torch.Tensor:
+                  init: str = "noise", differentiable: bool = False,
+                  remat: bool = True, remat_chunk: int = 1) -> torch.Tensor:
     """The reference's full T-step ancestral loop.  ``x_in`` is the
-    bicubic-upsampled conditioning (or, unconditional, only a shape)."""
+    bicubic-upsampled conditioning (or, unconditional, only a shape).
+
+    Without ``differentiable`` the loop runs under ``torch.no_grad()``.
+    With it the loop stays on the autograd tape (model3's hand-off), each
+    step checkpointed when ``remat``, or each run of ``remat_chunk`` steps
+    (which must divide T); the gradients are the same either way."""
     T = sched.num_timesteps
     condition = x_in if conditional else None
     draw = _noise_stream(x_in.shape, x_in.device, generator, noise)
-    img = _sampler_init(sched, draw(), init, condition)
-    for i in range(T):
-        t = T - 1 - i
+
+    def step(k: int, img: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        t = T - 1 - k
         mean, log_var = p_mean_variance(denoise, sched, img, t, condition,
                                         clip_denoised)
-        z = draw()
-        img = (mean + float(np.exp(np.float32(0.5) * log_var)) * z
-               if t > 0 else mean)
-    return img
+        return (mean + float(np.exp(np.float32(0.5) * log_var)) * z
+                if t > 0 else mean)
+
+    with contextlib.nullcontext() if differentiable else torch.no_grad():
+        img = _sampler_init(sched, draw(), init, condition)
+        return _run_steps(step, img, T, draw, differentiable=differentiable,
+                          remat=remat, remat_chunk=remat_chunk, what="T")
 
 
 def _strided_taus(T: int, num_steps: int) -> np.ndarray:
@@ -200,33 +241,37 @@ def _make_x0_eps_pred(denoise: DenoiseFn, sched: DiffusionSchedule,
         eps = denoise(net_in, _noise_level(sched, img, t)).float()
         x0 = predict_start_from_noise(sched, img, t, eps)
         if clip_denoised:
-            x0 = x0.clamp(-1.0, 1.0)
+            x0 = clip(x0, -1.0, 1.0)
         return x0, eps
 
     return x0_eps
 
 
-@torch.no_grad()
 def ddim_sample_loop(denoise: DenoiseFn, sched: DiffusionSchedule,
                      x_in: torch.Tensor, *, num_steps: int = 50,
                      eta: float = 0.0,
                      generator: torch.Generator | None = None,
                      noise: Sequence[torch.Tensor] | None = None,
                      conditional: bool = True, clip_denoised: bool = True,
-                     init: str = "noise") -> torch.Tensor:
+                     init: str = "noise", differentiable: bool = False,
+                     remat: bool = True, remat_chunk: int = 1
+                     ) -> torch.Tensor:
     """DDIM over a strided timestep subsequence: ``eta=0`` deterministic,
     ``eta=1`` ancestral-like variance.  The serving recipe is
-    ``num_steps=25, eta=1, init="marginal"``."""
+    ``num_steps=25, eta=1, init="marginal"``.  ``differentiable``,
+    ``remat`` and ``remat_chunk`` (which must divide ``num_steps``) as in
+    :func:`p_sample_loop`."""
     T = sched.num_timesteps
     num_steps = min(num_steps, T)
     condition = x_in if conditional else None
     taus = _strided_taus(T, num_steps)
     x0_eps = _make_x0_eps_pred(denoise, sched, condition, clip_denoised)
     draw = _noise_stream(x_in.shape, x_in.device, generator, noise)
-    img = _sampler_init(sched, draw(), init, condition)
     ac = sched.alphas_cumprod
     one, eta32 = np.float32(1.0), np.float32(eta)
-    for i in range(num_steps - 1, -1, -1):
+
+    def step(k: int, img: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        i = num_steps - 1 - k
         t = int(taus[i])
         t_prev = int(taus[i - 1]) if i > 0 else -1
         x0, eps = x0_eps(img, t)
@@ -236,8 +281,72 @@ def ddim_sample_loop(denoise: DenoiseFn, sched: DiffusionSchedule,
                  * np.sqrt(one - a_t / a_prev))
         dir_coef = np.sqrt(np.maximum(one - a_prev - sigma * sigma,
                                       np.float32(0.0)))
-        z = draw()
         img = float(np.sqrt(a_prev)) * x0 + float(dir_coef) * eps
-        if t_prev >= 0:
-            img = img + float(sigma) * z
+        return img + float(sigma) * z if t_prev >= 0 else img
+
+    with contextlib.nullcontext() if differentiable else torch.no_grad():
+        img = _sampler_init(sched, draw(), init, condition)
+        return _run_steps(step, img, num_steps, draw,
+                          differentiable=differentiable, remat=remat,
+                          remat_chunk=remat_chunk, what="num_steps")
+
+
+@torch.no_grad()
+def dpmpp_sample_loop(denoise: DenoiseFn, sched: DiffusionSchedule,
+                      x_in: torch.Tensor, *, num_steps: int = 25,
+                      eta: float = 0.0,
+                      generator: torch.Generator | None = None,
+                      noise: Sequence[torch.Tensor] | None = None,
+                      conditional: bool = True, clip_denoised: bool = True,
+                      init: str = "noise") -> torch.Tensor:
+    """DPM-Solver++(2M) over the strided subsequence: second-order
+    multistep in the data-prediction form, first order at the first and
+    the last update.  ``eta=0`` is the deterministic solver; ``eta>0`` the
+    2M SDE (extra ``e^{-ηh}`` decay toward the x₀ prediction, fresh noise
+    ``σ_p·sqrt(1 − e^{-2ηh})·ε`` each step, one draw per loop iteration as
+    the JAX package's ``fold_in`` stream; ``eta=0`` draws only x_T).  No
+    gradient, as the JAX loop ends in ``stop_gradient``.  The step scalars
+    are float32, computed on the host as the JAX loop computes them."""
+    T = sched.num_timesteps
+    num_steps = min(num_steps, T)
+    condition = x_in if conditional else None
+    taus = _strided_taus(T, num_steps)
+    x0_eps = _make_x0_eps_pred(denoise, sched, condition, clip_denoised)
+    draw = _noise_stream(x_in.shape, x_in.device, generator, noise)
+    img = _sampler_init(sched, draw(), init, condition)
+    f32 = np.float32
+    eta32, one = f32(eta), f32(1.0)
+    d_prev, lam_prev = None, f32(0.0)
+    for i in range(num_steps - 1, -1, -1):
+        t = int(taus[i])
+        t_prev = int(taus[i - 1]) if i > 0 else -1
+        d, _ = x0_eps(img, t)
+        a_c = sched.alphas_cumprod[t]
+        a_p = sched.alphas_cumprod[t_prev] if t_prev >= 0 else one
+        alpha_c, sigma_c = np.sqrt(a_c), np.sqrt(one - a_c)
+        alpha_p = np.sqrt(a_p)
+        sigma_p = np.sqrt(np.maximum(one - a_p, f32(0.0)))
+        e_neg_h = (alpha_c * sigma_p) / (alpha_p * sigma_c)
+        lam_c = np.log(alpha_c / sigma_c)
+        h = np.maximum(-np.log(np.maximum(e_neg_h, f32(1e-38))), f32(1e-12))
+        r = np.maximum((lam_c - lam_prev) / h, f32(1e-6))
+        use_2nd = d_prev is not None and t_prev >= 0
+        if eta == 0.0:
+            d_eff = d + (d - d_prev) / float(f32(2.0) * r) if use_2nd else d
+            img = (float(sigma_p / sigma_c) * img
+                   + float(alpha_p * (one - e_neg_h)) * d_eff)
+        else:
+            c = (one + eta32) * h
+            e_neg_c = e_neg_h ** (one + eta32)
+            d_term = float(one - e_neg_c) * d
+            if use_2nd:
+                d_term = d_term + float((one - (one - e_neg_c) / c) / r) \
+                    * (d - d_prev)
+            z = draw()
+            img = (float(sigma_p / sigma_c * e_neg_h ** eta32) * img
+                   + float(alpha_p) * d_term)
+            if t_prev >= 0:
+                img = img + float(sigma_p * np.sqrt(np.maximum(
+                    one - e_neg_h ** (f32(2.0) * eta32), f32(0.0)))) * z
+        d_prev, lam_prev = d, lam_c
     return img

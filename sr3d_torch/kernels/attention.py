@@ -132,7 +132,9 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        return (*spatial_attention_backward(q, k, v, g, ctx.scale), None)
+        with torch.profiler.record_function("spatial_attention.backward"):
+            return (*spatial_attention_backward(q, k, v, g, ctx.scale),
+                    None)
 
 
 def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

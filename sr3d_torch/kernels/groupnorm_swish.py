@@ -106,10 +106,14 @@ def gn_mean_scale(s: torch.Tensor, q: torch.Tensor, gamma: torch.Tensor,
     g_mean = s.view(B, groups, cg).sum(-1) / n_per_group
     g_var = (q.view(B, groups, cg).sum(-1) / n_per_group
              - g_mean * g_mean).clamp_min(0)
-    mean_c = g_mean.repeat_interleave(cg, dim=1)
-    a = (1.0 / torch.sqrt(g_var + eps)).repeat_interleave(cg, dim=1) \
-        * gamma.float()
-    return mean_c, a
+
+    def per_channel(t: torch.Tensor) -> torch.Tensor:
+        # a broadcast, not repeat_interleave: its backward is then a sum,
+        # not an index_add (atomics on CUDA, so run-to-run differences)
+        return t[:, :, None].expand(B, groups, cg).reshape(B, C)
+
+    return per_channel(g_mean), \
+        per_channel(1.0 / torch.sqrt(g_var + eps)) * gamma.float()
 
 
 def gn_swish_reference(x: torch.Tensor, gamma: torch.Tensor,
@@ -241,7 +245,9 @@ class _GnSwish(torch.autograd.Function):
     def backward(ctx, gy):
         x, gamma, beta = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
+        # a profiler range, so that profile_train can attribute its time
+        with torch.profiler.record_function("gn_swish.backward"), \
+                torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
                    for t, n in zip((x, gamma, beta), need)]
             y = gn_swish_reference(*ins, ctx.groups, ctx.eps)

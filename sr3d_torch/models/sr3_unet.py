@@ -300,16 +300,23 @@ class SR3UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, time: torch.Tensor, *,
                 generator: torch.Generator | None = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                remat: bool | None = None) -> torch.Tensor:
         """Dropout is drawn only in train mode with ``deterministic=False``
         and dropout > 0; then ``generator`` (on ``x``'s device) is
-        required: it seeds every block's dropout masks."""
+        required: it seeds every block's dropout masks.  ``remat``
+        (default: train mode and ``self.remat``) checkpoints the blocks
+        where grad is enabled; a caller that checkpoints the whole forward
+        fixes it, so that the recompute runs as the forward did whatever
+        the mode is by then."""
         in_dtype = x.dtype
         drop = self.training and not deterministic and self.dropout > 0.0
         if drop and generator is None:
             raise ValueError("SR3UNet: train-mode dropout needs an explicit "
                              "torch.Generator")
-        remat = self.training and self.remat and torch.is_grad_enabled()
+        if remat is None:
+            remat = self.training and self.remat
+        remat = remat and torch.is_grad_enabled()
         blocks = [n for k, n in self.plan if k in ("down", "mid", "up")]
         seeds = dict.fromkeys(blocks)
         if drop:

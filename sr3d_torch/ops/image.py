@@ -80,10 +80,19 @@ def resize(x: torch.Tensor, height: int, width: int,
     return x
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``x`` clipped to [lo, hi] as ``jnp.clip`` computes it,
+    ``min(max(x, lo), hi)``: equal values, and a value on a bound passes
+    half its gradient (``clamp`` passes all of it).  The differentiable
+    hand-off clips twice in a row (x̂₀, then ``tensor_to_unit``)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 def tensor_to_unit(x: torch.Tensor, min_max=(-1.0, 1.0)) -> torch.Tensor:
-    """Clamp to ``min_max`` and rescale to [0, 1]."""
+    """Clip to ``min_max`` and rescale to [0, 1]."""
     lo, hi = min_max
-    return (x.clamp(lo, hi) - lo) / (hi - lo)
+    return (clip(x, lo, hi) - lo) / (hi - lo)
 
 
 def tensor_to_uint8(x: torch.Tensor, min_max=(-1.0, 1.0)) -> torch.Tensor:
@@ -105,14 +114,35 @@ def arcface_blob_from_uint8(img_uint8: torch.Tensor, size: int = 112
     return bgr_swap((x - INPUT_MEAN) / INPUT_STD)
 
 
+def arcface_blob_differentiable(img_255: torch.Tensor, size: int = 112
+                                ) -> torch.Tensor:
+    """The model3 blob, continuous: (x − 127.5)/127.5 → bilinear
+    resize(size) → BGR.  NHWC float in [0, 255]."""
+    x = (img_255 - INPUT_MEAN) / INPUT_STD
+    return bgr_swap(resize(x, size, size, "bilinear", antialias=False))
+
+
 def sr_to_mica_inputs(sr: torch.Tensor, *, image_size: int = 224,
-                      blob_size: int = 112
+                      blob_size: int = 112, quantize: bool = True,
+                      differentiable: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The quantised (model2 / serving) hand-off: SR in [−1, 1] NHWC →
-    (images ``[B, 224, 224, 3]`` in [0, 1], ArcFace blobs
-    ``[B, 112, 112, 3]`` in [−1, 1] BGR) through the uint8 round trip."""
-    u8 = tensor_to_uint8(sr)
-    img224_u8 = torch.round(resize(u8, image_size, image_size, "bilinear"))
+    """The hand-off: SR in [−1, 1] NHWC → (images ``[B, 224, 224, 3]`` in
+    [0, 1], ArcFace blobs ``[B, 112, 112, 3]`` in [−1, 1] BGR).
+
+    ``differentiable`` (model3): ``tensor_to_unit`` → bilinear 224 → ×255
+    → :func:`arcface_blob_differentiable`, no rounding, gradients flow.
+    Otherwise the image is detached and goes through the uint8 round trip
+    (``quantize``, model2 and serving) or, without ``quantize``, the same
+    resizes unrounded."""
+    if differentiable:
+        img224 = resize(tensor_to_unit(sr), image_size, image_size,
+                        "bilinear")
+        return img224, arcface_blob_differentiable(img224 * 255.0, blob_size)
+    u8 = (tensor_to_uint8(sr) if quantize
+          else tensor_to_unit(sr) * 255.0).detach()
+    img224_u8 = resize(u8, image_size, image_size, "bilinear")
+    if quantize:
+        img224_u8 = torch.round(img224_u8)
     blob = arcface_blob_from_uint8(img224_u8, blob_size)
     return img224_u8 / 255.0, blob
 

@@ -42,9 +42,13 @@ def _device_us(evt) -> float:
     return float(v if v is not None else evt.self_cuda_time_total)
 
 
-def _summarise(prof, wall_s: float, label: str) -> None:
+def _summarise(prof, wall_s: float, label: str,
+               ranges: tuple[str, ...] = ()) -> None:
+    """Device time by kernel group over ``wall_s``; ``ranges`` are
+    profiler ranges, whose device-side spans are not kernels."""
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ranges]
     total_us = sum(_device_us(e) for e in kernels)
     by_group = {name: 0.0 for name, _ in GROUPS}
     by_group["other"] = 0.0

@@ -1,0 +1,157 @@
+"""Where a model3 train step's time goes on the GPU.
+
+    python -m sr3d_torch.profile_train
+
+Builds the model3 joint step at the full width of
+``configs/sr_sr3_VGGF2_16_128_model3.yml`` (bf16, random weights from seed
+0, synthetic FLAME at the real size, N = K×B = 4 synthetic faces 16→128,
+the DDIM-25 flow-through hand-off checkpointed per step, block remat, Adam /
+AdamW, EMA), takes one step to warm up, then prints:
+
+* the host time (synchronised) of one whole step, and of its parts run
+  alone: the hand-off's forward and its backward (the checkpoints'
+  recompute and the backward of a scalar of the sample), l_sr's forward +
+  backward, and the MICA branch's forward + backward (ArcFace in train
+  mode, mapping, FLAME, the vertex loss) on the hand-off's blob;
+* a ``torch.profiler`` trace of one whole step: device time by kernel
+  group, the device's busy share of the step's wall time, and the share of
+  the step in GN+Swish's backward (autograd of its plain version, profiler
+  range ``gn_swish.backward``) and in attention's backward (range
+  ``spatial_attention.backward``), as device time and as host time.
+
+Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .profile_serving import _device_us, _summarise
+
+ROOT = Path(__file__).resolve().parents[1]
+RANGES = ("gn_swish.backward", "spatial_attention.backward")
+
+
+def _timed(fn) -> tuple[float, object]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def main() -> None:
+    from .config import get_cfg_defaults, update_cfg
+    from .data.synthetic import synthetic_face_batch
+    from .diffusion.gaussian import ddim_sample_loop, p_losses_continuous
+    from .models.flame import synthetic_flame
+    from .models.masking import masked_vertex_l1
+    from .ops.image import degrade_pair, sr_to_mica_inputs
+    from .train.joint import (
+        build_joint,
+        decode_mica,
+        encode_mica,
+        gt_flame_vertices,
+        init_train_state,
+        make_train_step,
+    )
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs an NVIDIA GPU")
+    cfg = update_cfg(get_cfg_defaults(), str(
+        ROOT / "configs" / "sr_sr3_VGGF2_16_128_model3.yml"))
+    cfg.tpu.compute_dtype = "bfloat16"
+    cfg.sr.model.diffusion.train_sampler = "ddim"
+    cfg.sr.model.diffusion.train_ddim_steps = 25
+    dev = torch.device("cuda")
+    n = int(cfg.mica.datasets.K) * int(cfg.mica.datasets.batch_size)
+    lo, hi = (int(cfg.sr.datasets.train.l_resolution),
+              int(cfg.sr.datasets.train.r_resolution))
+    hr = torch.from_numpy(synthetic_face_batch(n, hi, seed=0))
+    g = torch.Generator().manual_seed(0)
+    batch = {"HR": hr, "SR": degrade_pair(hr, lo, hi)[1],
+             "flame_shape": torch.randn(n, int(cfg.mica.model.n_shape),
+                                        generator=g) * 0.3}
+    flame = synthetic_flame(n_vertices=5023, n_shape=300, n_exp=100,
+                            n_faces=9976, seed=0, device=dev)
+    mods = build_joint(cfg, flame=flame, init_seed=0, device=dev)
+    state = init_train_state(mods, cfg)
+    step = make_train_step(cfg.sr.train.ema_scheduler)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one_step():
+        return step(mods, state, batch, generator=gen)[1]["loss"].item()
+
+    one_step()   # warm-up: cuDNN plans, kernel builds
+    t_step, _ = _timed(one_step)
+    print(f"model3 step, N={n}, DDIM-25 flow-through hand-off: "
+          f"{t_step:.3f} s host wall (synchronised)")
+
+    # the parts, each alone
+    hr_d = batch["HR"].to(dev).permute(0, 3, 1, 2).contiguous()
+    cond = batch["SR"].to(dev).permute(0, 3, 1, 2).contiguous()
+    t_fwd, final = _timed(lambda: ddim_sample_loop(
+        functools.partial(mods.unet, remat=False), mods.sched_train, cond,
+        num_steps=25, eta=1.0, init="marginal", generator=gen,
+        differentiable=True, remat=True))
+    t_bwd, _ = _timed(lambda: final.square().sum().backward())
+    _, blob = sr_to_mica_inputs(final.detach().permute(0, 2, 3, 1),
+                                differentiable=True)
+    del final
+    mods.unet.train()
+    mods.arcface.train()
+    try:
+        t_sr, _ = _timed(lambda: (p_losses_continuous(
+            mods.unet, mods.sched_train, hr_d, cond, generator=gen)
+            / hr_d.numel()).backward())
+        gt = gt_flame_vertices(mods, batch["flame_shape"].to(dev))
+        blob.requires_grad_(True)
+        t_mica, _ = _timed(lambda: masked_vertex_l1(
+            decode_mica(mods, encode_mica(mods, blob))[0], gt,
+            mods.vertex_weights).backward())
+    finally:
+        mods.unet.eval()
+        mods.arcface.eval()
+    state.opt.zero_grad(set_to_none=True)
+    for name, t in (("hand-off forward (25 steps, on the tape)", t_fwd),
+                    ("hand-off backward (recompute + backward)", t_bwd),
+                    ("l_sr forward + backward", t_sr),
+                    ("MICA branch forward + backward", t_mica)):
+        print(f"  {name:42s} {t:8.3f} s ({100 * t / t_step:5.1f}% of a "
+              f"step)")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t_prof, _ = _timed(one_step)
+    # busy share against the wall without the profiler, which slows the
+    # host; the ranges' host shares against the profiled wall
+    _summarise(prof, t_step, "one model3 step", RANGES)
+    print(f"  the profiled step: {t_prof:.3f} s host wall")
+    cpu_side = torch.autograd.DeviceType.CPU
+    events = prof.key_averages()
+    total_us = sum(_device_us(e) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key not in RANGES)
+    for name in RANGES:
+        hits = [e for e in events
+                if e.key == name and e.device_type == cpu_side]
+        if not hits:
+            print(f"  {name}: no range recorded")
+            continue
+        e = hits[0]
+        dev_us = float(getattr(e, "device_time_total", None)
+                       or e.cuda_time_total)
+        cpu_us = float(e.cpu_time_total)
+        print(f"  {name}: {e.count} calls, device {dev_us / 1e3:.3f} ms "
+              f"({100 * dev_us / max(total_us, 1e-9):.1f}% of the step's "
+              f"kernel time), host {cpu_us / 1e3:.3f} ms "
+              f"({100 * cpu_us / 1e6 / t_prof:.1f}% of the profiled step)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,19 @@
-"""The joint SR-diffusion + MICA model: the model2 train step and the
-serving step.
+"""The joint SR-diffusion + MICA model: the train, eval and serving steps.
 
 Counterpart of ``sr3d_tpu/train/joint.py`` (``build_joint``,
-``make_optimizer``, ``init_train_state``, ``make_train_step`` for model2,
-``encode_mica``, ``decode_mica``, ``gt_flame_vertices``,
-``make_val_step``): SR sampling (ancestral or DDIM), the quantised uint8
-hand-off to the 224² image and the 112² ArcFace blob, ArcFace →
-L2-normalise → mapping network → FLAME vertices → 68 landmarks; in training
-also the SR3 loss, the masked vertex loss, the two optimizers and the EMA.
+``make_optimizer``, ``init_train_state``, ``make_train_step``,
+``make_eval_step``, ``encode_mica``, ``decode_mica``,
+``gt_flame_vertices``, ``make_val_step``): SR sampling (ancestral, DDIM or
+DPM-Solver++), the hand-off to the 224² image and the 112² ArcFace blob,
+ArcFace → L2-normalise → mapping network → FLAME vertices → 68 landmarks;
+in training also the SR3 loss, the masked vertex loss, the two optimizers,
+gradient accumulation and the EMA.
 
-Model3 (the differentiable hand-off), the int8 hand-off and gradient
-accumulation are not ported yet; the train step raises for them.
+Both variants train: model2 samples without gradient and hands off through
+the uint8 round trip; model3 hands off through the continuous blob, and
+unless ``sever_sr_grad`` its sampling stays on the autograd tape (each
+step checkpointed), so l_mica trains the UNet too.  The int8 hand-off
+(``train_handoff_int8``) is not ported yet; the steps raise for it.
 
 The public steps keep the JAX package's layouts: the batch's ``"HR"``,
 ``"SR"`` and the returned ``"sr"`` / ``"img224"`` are NHWC; the UNet and
@@ -22,6 +25,8 @@ place.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -32,6 +37,7 @@ from ..device import resolve_device
 from ..diffusion.ema import EmaState, ema_init, ema_update
 from ..diffusion.gaussian import (
     ddim_sample_loop,
+    dpmpp_sample_loop,
     p_losses_continuous,
     p_sample_loop,
 )
@@ -73,6 +79,11 @@ class JointModules:
     ddim_steps: int = 50
     ddim_eta: float = 1.0
     sampler_init: str = "noise"
+    dpmpp_eta: float = 0.0             # > 0: the 2M SDE
+    # model3's differentiable hand-off: checkpoint each run of
+    # sample_remat_chunk sampling steps (the same gradients, less memory)
+    sample_remat: bool = True
+    sample_remat_chunk: int = 1
     # the in-step SR → MICA hand-off: "ddpm" is the reference's T-step
     # ancestral loop, "ddim" the serving recipe (η = 1, marginal init) at
     # train_ddim_steps UNet evaluations
@@ -90,12 +101,15 @@ class JointModules:
 
 @dataclasses.dataclass
 class JointTrainState:
-    """What a train step carries besides the modules: the step count, the
-    optimizer (with its moments) and the EMA of the UNet's parameters."""
+    """What a train step carries besides the modules: the step count (train
+    steps called, micro-steps under gradient accumulation), the optimizer
+    (with its moments), the EMA of the UNet's parameters and
+    ``grad_accum``, the micro-steps an optimizer update averages."""
 
     step: int
     opt: torch.optim.Optimizer
     ema: EmaState | None
+    grad_accum: int = 1
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -147,7 +161,10 @@ def build_joint(cfg, flame: FlameModel | None = None,
     m = cfg.mica.model
     train_prefix = not bool(cfg.mica.train.get("freeze_arcface_prefix",
                                                True))
-    with torch.random.fork_rng(devices=[]):  # construction draws globally
+    # construction draws from the global RNG (the biases keep those
+    # values): seed it, inside a fork, so that init_seed alone decides
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(int(init_seed))
         unet = unet_from_config(cfg.sr.model.unet, cfg.sr.model.diffusion,
                                 dtype=dtype, remat=bool(cfg.tpu.train_remat))
         arcface = IResNet(layers=tuple(m.get("arcface_layers",
@@ -174,6 +191,9 @@ def build_joint(cfg, flame: FlameModel | None = None,
         ddim_steps=int(d.get("ddim_steps", 50)),
         ddim_eta=float(d.get("ddim_eta", 1.0)),
         sampler_init=str(d.get("sampler_init", "noise")),
+        dpmpp_eta=float(d.get("dpmpp_eta", 0.0)),
+        sample_remat=bool(cfg.tpu.sample_remat),
+        sample_remat_chunk=int(cfg.tpu.get("sample_remat_chunk", 1)),
         train_sampler=str(d.get("train_sampler", "ddpm")),
         train_ddim_steps=int(d.get("train_ddim_steps", 25)),
         handoff_source=str(cfg.train.get("handoff_source", "sampled")),
@@ -195,11 +215,9 @@ def make_optimizer(cfg, modules: JointModules) -> torch.optim.AdamW:
       ``cfg.mica.train.lr``; both with ``weight_decay`` and the staircase
       StepLR ``lr·lr_gamma^(step // lr_update_step)`` (``set_step_lr``).
 
-    The frozen prefix is in no group: no update and no weight decay."""
-    if int(cfg.tpu.get("grad_accum", 1)) > 1:
-        raise NotImplementedError(
-            "tpu.grad_accum > 1 (gradient accumulation) is not ported yet; "
-            "it comes with a later slice of the train step")
+    The frozen prefix is in no group: no update and no weight decay.
+    ``tpu.grad_accum`` (optax's ``MultiSteps``) is the train step's:
+    ``JointTrainState.grad_accum``."""
     t = cfg.mica.train
     freeze = bool(t.get("freeze_arcface_prefix", True))
     trainable = frozen_prefix_mask(modules.arcface)
@@ -243,7 +261,8 @@ def init_train_state(modules: JointModules, cfg) -> JointTrainState:
         p.requires_grad_(trainable[n] or modules.train_arcface_prefix)
     ema = (ema_init(dict(modules.unet.named_parameters()))
            if cfg.sr.train.ema_scheduler else None)
-    return JointTrainState(step=0, opt=make_optimizer(cfg, modules), ema=ema)
+    return JointTrainState(step=0, opt=make_optimizer(cfg, modules), ema=ema,
+                           grad_accum=int(cfg.tpu.get("grad_accum", 1)))
 
 
 def scale_handoff_grad(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -278,30 +297,53 @@ def gt_flame_vertices(modules: JointModules, shape_params: torch.Tensor
     return verts
 
 
-@torch.no_grad()
 def _handoff_sample(modules: JointModules, cond: torch.Tensor,
                     generator: torch.Generator | None,
-                    noise: Sequence[torch.Tensor] | None) -> torch.Tensor:
+                    noise: Sequence[torch.Tensor] | None,
+                    differentiable: bool) -> torch.Tensor:
     """The in-step SR sample (NCHW) of the NCHW conditioning: the T-step
     ancestral loop (``ddpm``) or DDIM η = 1 with marginal init at
-    ``train_ddim_steps`` (``ddim``)."""
-    kw = dict(generator=generator, noise=noise)
+    ``train_ddim_steps`` (``ddim``); on the autograd tape when
+    ``differentiable``.  A ``sample_remat_chunk`` that does not divide
+    ``train_ddim_steps`` falls back to per-step checkpoints with a warning
+    (the same gradients); the ancestral loop raises for one that does not
+    divide T."""
+    if modules.train_handoff_int8:
+        raise NotImplementedError(
+            "train_handoff_int8 (the w8a8 int8 hand-off) is not ported yet; "
+            "a later slice ports it")
+    # The UNet's own block checkpoints are fixed here, not left to its
+    # mode: a checkpointed sampling step must recompute as it ran.  Under
+    # the per-step checkpoints they would only recompute twice.
+    denoise = functools.partial(
+        modules.unet, remat=modules.unet.remat and not modules.sample_remat)
+    kw = dict(generator=generator, noise=noise, differentiable=differentiable,
+              remat=modules.sample_remat)
+    chunk = modules.sample_remat_chunk
     if modules.train_sampler == "ddim":
-        return ddim_sample_loop(modules.unet, modules.sched_train, cond,
+        if chunk > 1 and modules.train_ddim_steps % chunk:
+            warnings.warn(
+                f"tpu.sample_remat_chunk={chunk} does not divide "
+                f"train_ddim_steps={modules.train_ddim_steps}; the ddim "
+                f"hand-off falls back to per-step remat (chunk=1)")
+            chunk = 1
+        return ddim_sample_loop(denoise, modules.sched_train, cond,
                                 num_steps=modules.train_ddim_steps, eta=1.0,
-                                init="marginal", **kw)
+                                init="marginal", remat_chunk=chunk, **kw)
     if modules.train_sampler != "ddpm":
         raise ValueError(f"unknown train_sampler {modules.train_sampler!r}: "
                          f"expected 'ddpm' or 'ddim'")
-    return p_sample_loop(modules.unet, modules.sched_train, cond, **kw)
+    return p_sample_loop(denoise, modules.sched_train, cond,
+                         remat_chunk=chunk, **kw)
 
 
 def _handoff_image(modules: JointModules, cond: torch.Tensor,
                    hr: torch.Tensor, generator: torch.Generator | None,
-                   noise: Sequence[torch.Tensor] | None) -> torch.Tensor:
+                   noise: Sequence[torch.Tensor] | None,
+                   differentiable: bool = False) -> torch.Tensor:
     """The NHWC image the MICA branch sees, per ``handoff_source``:
     ``sampled`` runs the in-step sampling; ``cond`` and ``hr`` are the
-    bicubic and HR control arms."""
+    bicubic and HR control arms (no sampling, no UNet dependence)."""
     src = modules.handoff_source
     if src == "cond":
         return cond
@@ -311,95 +353,169 @@ def _handoff_image(modules: JointModules, cond: torch.Tensor,
         raise ValueError(f"unknown train.handoff_source {src!r}: expected "
                          f"'sampled', 'cond' or 'hr'")
     final = _handoff_sample(modules, cond.permute(0, 3, 1, 2).contiguous(),
-                            generator, noise)
+                            generator, noise, differentiable)
     return final.permute(0, 2, 3, 1)
 
 
-def make_train_step(ema_cfg: dict | None = None):
+def _l_sr(modules: JointModules, hr: torch.Tensor, cond: torch.Tensor,
+          generator: torch.Generator | None, draws: dict) -> torch.Tensor:
+    """``p_losses_continuous(…) / hr.numel()`` of NHWC ``hr`` conditioned
+    on NHWC ``cond``."""
+    return p_losses_continuous(
+        modules.unet, modules.sched_train,
+        hr.permute(0, 3, 1, 2).contiguous(),
+        cond.permute(0, 3, 1, 2).contiguous(), generator=generator,
+        gamma=draws.get("gamma"), noise=draws.get("noise"),
+        loss_type=modules.loss_type) / hr.numel()
+
+
+def _l_mica(modules: JointModules, blob: torch.Tensor,
+            flame_shape: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """ArcFace → mapping → FLAME → the masked vertex L1 against the
+    ground truth of ``flame_shape``: ``(l_mica, verts, gt_verts)``."""
+    pred, _ = decode_mica(modules, encode_mica(modules, blob))
+    gt = gt_flame_vertices(modules, flame_shape.to(modules.device,
+                                                   torch.float32))
+    return masking.masked_vertex_l1(pred, gt, modules.vertex_weights), \
+        pred, gt
+
+
+def train_losses(modules: JointModules, batch: dict, *,
+                 generator: torch.Generator | None = None,
+                 draws: dict | None = None) -> dict:
+    """The train step's forward (the JAX package's ``loss_fn``), on the
+    autograd tape, the networks in the modes the caller set (the step: train
+    mode).  Returns ``l_sr``, ``l_mica`` and the detached ``vis`` tensors
+    (``verts``, ``gt_verts``, ``img224``).
+
+    l_sr conditions on ``batch["SR"]`` for both variants.  The hand-off
+    (``handoff_source``): model2 samples without gradient and hands off
+    through the uint8 round trip; model3 hands off through the continuous
+    blob, its sample detached under ``sever_sr_grad`` and otherwise on the
+    tape with its backward scaled by ``handoff_grad_scale``."""
+    if modules.variant not in ("model2", "model3"):
+        raise ValueError(f"unknown model variant {modules.variant!r}: "
+                         f"expected 'model2' or 'model3'")
+    draws = draws or {}
+    model3 = modules.variant == "model3"
+    hr = batch["HR"].to(modules.device, torch.float32)
+    cond = batch["SR"].to(modules.device, torch.float32)
+    l_sr = _l_sr(modules, hr, cond, generator, draws)
+    final = _handoff_image(modules, cond, hr, generator,
+                           draws.get("handoff"),
+                           differentiable=model3 and not modules.sever_sr_grad)
+    if model3 and modules.sever_sr_grad:
+        final = final.detach()
+    elif model3:
+        final = scale_handoff_grad(final, modules.handoff_grad_scale)
+    img224, blob = sr_to_mica_inputs(final, image_size=modules.image_size,
+                                     blob_size=modules.blob_size,
+                                     differentiable=model3)
+    l_mica, pred, gt = _l_mica(modules, blob, batch["flame_shape"])
+    return {"l_sr": l_sr, "l_mica": l_mica,
+            "vis": {"verts": pred.detach(), "gt_verts": gt,
+                    "img224": img224.detach()}}
+
+
+def make_train_step(ema_cfg: dict | None = None, with_vis: bool = False):
     """``train_step(modules, state, batch, *, generator=None, draws=None)
-    -> (state, metrics)`` for model2, updating the modules, the optimizer
-    and the EMA in place.
+    -> (state, metrics)`` for model2 and model3, updating the modules, the
+    optimizer and the EMA in place.
 
     ``batch``: ``HR``/``SR`` ``[N, h, h, 3]`` NHWC in [−1, 1] (the
     flattened K×B batch) and ``flame_shape`` ``[N, n_shape]``.  The random
-    draws come from ``generator`` (on ``modules.device``): the hand-off's
-    noise and l_sr's t, γ and noise.  ``draws`` replaces some of them:
+    draws come from ``generator`` (on ``modules.device``): l_sr's t, γ and
+    noise and the hand-off's noise.  ``draws`` replaces some of them:
     ``"gamma"`` ``[N]`` and ``"noise"`` (NCHW) for l_sr, ``"handoff"`` the
     sampler's noise list (see ``diffusion.gaussian``).
 
-    One step: the hand-off sample under ``no_grad`` with the UNet in eval
-    mode; ``l_sr = p_losses_continuous(…)/hr.numel()`` conditioned on
-    ``batch["SR"]`` with the UNet in train mode (remat) and deterministic,
-    as the JAX step's ``unet.apply`` leaves flax's default; the
-    quantised uint8 hand-off → ArcFace in train mode → mapping → FLAME →
-    ``l_mica = masked_vertex_l1``; one backward of ``l_sr + l_mica``; the
-    optimizer step (StepLR set from ``state.step``); the EMA update.
-    ``metrics``: ``l_sr``, ``l_mica``, ``loss`` (0-d tensors)."""
+    One step: :func:`train_losses` with the UNet and ArcFace in train mode
+    (the UNet deterministic, as the JAX step's ``unet.apply`` leaves
+    flax's default; its blocks checkpointed under ``train_remat``), one
+    backward of ``l_sr + l_mica``, then the optimizer (StepLR set from the
+    updates made so far) and the EMA.  Under ``state.grad_accum = k`` the
+    gradients of k calls are averaged as optax's ``MultiSteps`` does
+    (running mean) and the optimizer steps on every k-th call only; the EMA
+    and ArcFace's BatchNorm statistics move on every call.  ``metrics``:
+    ``l_sr``, ``l_mica``, ``loss`` (0-d tensors), and with ``with_vis``
+    ``vis`` = ``{verts, gt_verts, img224}`` of the same forward, detached.
+    """
 
     def train_step(modules: JointModules, state: JointTrainState,
                    batch: dict, *, generator: torch.Generator | None = None,
                    draws: dict | None = None
                    ) -> tuple[JointTrainState, dict]:
-        if modules.variant != "model2":
-            raise NotImplementedError(
-                f"the {modules.variant} train step (differentiable hand-off)"
-                f" is not ported yet; a later slice ports it")
-        if modules.train_handoff_int8:
-            raise NotImplementedError(
-                "train_handoff_int8 (the w8a8 int8 hand-off) is not ported "
-                "yet; a later slice ports it")
-        draws = draws or {}
-        dev = modules.device
-        hr = batch["HR"].to(dev, torch.float32)
-        cond = batch["SR"].to(dev, torch.float32)
-
-        # The hand-off runs first, so that the UNet stays in train mode
-        # from the loss forward to the end of its backward, where the
-        # checkpointed blocks run again.
-        modules.unet.eval()
-        final = _handoff_image(modules, cond, hr, generator,
-                               draws.get("handoff"))
-        _, blob = sr_to_mica_inputs(final, image_size=modules.image_size,
-                                    blob_size=modules.blob_size)
-
+        k = state.grad_accum
+        micro = state.step % k
+        params = [p for g in state.opt.param_groups for p in g["params"]]
+        acc = [p.grad for p in params] if micro else None
+        state.opt.zero_grad(set_to_none=True)
         modules.unet.train()
         modules.arcface.train()
         try:
-            l_sr = p_losses_continuous(
-                modules.unet,
-                modules.sched_train, hr.permute(0, 3, 1, 2).contiguous(),
-                cond.permute(0, 3, 1, 2).contiguous(), generator=generator,
-                gamma=draws.get("gamma"), noise=draws.get("noise"),
-                loss_type=modules.loss_type) / hr.numel()
-            pred, _ = decode_mica(modules, encode_mica(modules, blob))
-            gt = gt_flame_vertices(modules, batch["flame_shape"].to(
-                dev, torch.float32))
-            l_mica = masking.masked_vertex_l1(pred, gt,
-                                              modules.vertex_weights)
-            loss = l_sr + l_mica
-            state.opt.zero_grad(set_to_none=True)
+            out = train_losses(modules, batch, generator=generator,
+                               draws=draws)
+            loss = out["l_sr"] + out["l_mica"]
             loss.backward()
         finally:
             modules.unet.eval()
             modules.arcface.eval()
-        set_step_lr(state.opt, state.step)
-        state.opt.step()
+        if acc is not None:   # acc + (g − acc)/(n + 1), optax's mean
+            grads = [p.grad for p in params]
+            torch._foreach_sub_(grads, acc)
+            torch._foreach_div_(grads, micro + 1)
+            torch._foreach_add_(grads, acc)
+        if micro == k - 1:
+            set_step_lr(state.opt, state.step // k)
+            state.opt.step()
         if state.ema is not None and ema_cfg is not None:
             ema_update(state.ema, dict(modules.unet.named_parameters()),
                        decay=float(ema_cfg["ema_decay"]),
                        step_start_ema=int(ema_cfg["step_start_ema"]),
                        update_every=int(ema_cfg["update_ema_every"]))
         state.step += 1
-        return state, {"l_sr": l_sr.detach(), "l_mica": l_mica.detach(),
-                       "loss": loss.detach()}
+        metrics = {"l_sr": out["l_sr"].detach(),
+                   "l_mica": out["l_mica"].detach(), "loss": loss.detach()}
+        if with_vis:
+            metrics["vis"] = out["vis"]
+        return state, metrics
 
     return train_step
+
+
+def make_eval_step():
+    """``eval_step(modules, batch, *, generator=None, draws=None) ->
+    {"l_sr", "l_mica", "combined"}``: the validation losses without
+    gradient, the networks in eval mode (ArcFace on its running
+    statistics), the hand-off quantised whatever the variant (no gradient
+    is taken).  ``batch``, ``generator`` and ``draws`` as the train
+    step's."""
+
+    @torch.no_grad()
+    def eval_step(modules: JointModules, batch: dict, *,
+                  generator: torch.Generator | None = None,
+                  draws: dict | None = None) -> dict:
+        draws = draws or {}
+        hr = batch["HR"].to(modules.device, torch.float32)
+        cond = batch["SR"].to(modules.device, torch.float32)
+        l_sr = _l_sr(modules, hr, cond, generator, draws)
+        final = _handoff_image(modules, cond, hr, generator,
+                               draws.get("handoff"))
+        _, blob = sr_to_mica_inputs(final, image_size=modules.image_size,
+                                    blob_size=modules.blob_size)
+        l_mica, _, _ = _l_mica(modules, blob, batch["flame_shape"])
+        return {"l_sr": l_sr, "l_mica": l_mica, "combined": l_sr + l_mica}
+
+    return eval_step
 
 
 def make_val_step(use_ema: bool = False):
     """``val_step(modules, batch, *, generator=None, noise=None, ema=None)
     -> dict``: sampling with ``modules.val_sampler`` (``ddpm`` = the
-    ancestral loop, ``ddim`` = strided DDIM), then the MICA branch.  With
+    ancestral loop, ``ddim`` = strided DDIM, ``dpm++`` = DPM-Solver++(2M)
+    at ``ddim_steps``, the 2M SDE where ``dpmpp_eta`` > 0), then the MICA
+    branch.  With
     ``use_ema`` the UNet samples with the EMA's parameters (``ema``, a
     ``diffusion.ema.EmaState``; without one, with its own, as the JAX
     package does).  ``noise`` replays an explicit noise sequence (see
@@ -422,12 +538,15 @@ def make_val_step(use_ema: bool = False):
             final = ddim_sample_loop(denoise, modules.sched_val, cond,
                                      num_steps=modules.ddim_steps,
                                      eta=modules.ddim_eta, **kw)
+        elif modules.val_sampler == "dpm++":
+            final = dpmpp_sample_loop(denoise, modules.sched_val, cond,
+                                      num_steps=modules.ddim_steps,
+                                      eta=modules.dpmpp_eta, **kw)
         elif modules.val_sampler == "ddpm":
             final = p_sample_loop(denoise, modules.sched_val, cond, **kw)
         else:
-            raise NotImplementedError(
-                f"val sampler {modules.val_sampler!r} is not ported yet "
-                f"(ddpm | ddim)")
+            raise ValueError(f"unknown val sampler {modules.val_sampler!r}"
+                             f" (ddpm | ddim | dpm++)")
         sr = final.permute(0, 2, 3, 1)
         img224, blob = sr_to_mica_inputs(sr, image_size=modules.image_size,
                                          blob_size=modules.blob_size)

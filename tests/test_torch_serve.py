@@ -116,12 +116,15 @@ def test_val_step_matches_jax(jax_side, sampler):
 
 
 def test_val_step_refuses_unported_sampler():
-    cfg = _tune(t_update(t_defaults(), CONFIG), "dpm++")
+    """ddpm, ddim and dpm++ are the samplers (dpm++:
+    tests/test_torch_model3.py); any other name raises, with or without
+    the EMA."""
+    cfg = _tune(t_update(t_defaults(), CONFIG), "unipc")
     mods = t_build(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unipc"):
         t_val_step()(mods, {"SR": torch.zeros(1, 16, 16, 3)},
                      generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unipc"):
         t_val_step(use_ema=True)(mods, {"SR": torch.zeros(1, 16, 16, 3)},
                                  generator=torch.Generator().manual_seed(0))
 

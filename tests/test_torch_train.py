@@ -387,41 +387,66 @@ def test_scale_handoff_grad():
 
 
 def test_train_step_refuses_unported_paths():
-    for field, value in (("model", "model3"),):
+    """The int8 paths are not ported: the int8 hand-off raises in the train
+    and eval steps (for either variant), an int8 UNet when it is built."""
+    b = {k: torch.from_numpy(v) for k, v in batch_of().items()}
+    for variant in ("model2", "model3"):
         cfg = tiny_cfg(t_defaults())
-        cfg[field] = value
+        cfg.model = variant
+        cfg.sr.model.diffusion.train_handoff_int8 = True
         mods = tj.build_joint(cfg, device="cpu")
-        st = tj.init_train_state(mods, cfg)
-        with pytest.raises(NotImplementedError, match="model3"):
-            tj.make_train_step()(mods, st, {})
+        gen = torch.Generator().manual_seed(0)
+        with pytest.raises(NotImplementedError, match="int8"):
+            tj.make_train_step()(mods, tj.init_train_state(mods, cfg), b,
+                                 generator=gen)
+        with pytest.raises(NotImplementedError, match="int8"):
+            tj.make_eval_step()(mods, b, generator=gen)
     cfg = tiny_cfg(t_defaults())
-    cfg.sr.model.diffusion.train_handoff_int8 = True
-    mods = tj.build_joint(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tj.make_train_step()(mods, tj.init_train_state(mods, cfg), {})
-    cfg = tiny_cfg(t_defaults())
-    cfg.tpu.grad_accum = 2
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        tj.init_train_state(tj.build_joint(cfg, device="cpu"), cfg)
+    cfg.sr.model.unet.quant_min_res = 1
+    with pytest.raises(NotImplementedError, match="quant_min_res"):
+        tj.build_joint(cfg, device="cpu")
 
 
 def test_build_joint_fields_match_jax():
-    cfg = tiny_cfg(get_cfg_defaults(), "ddim")
-    cfg.mica.train.use_mask = True
-    cfg.train.handoff_source = "cond"
-    tcfg = tiny_cfg(t_defaults(), "ddim")
-    tcfg.mica.train.use_mask = True
-    tcfg.train.handoff_source = "cond"
+    cfg, tcfg = (tiny_cfg(c, "ddim") for c in (get_cfg_defaults(),
+                                                t_defaults()))
+    for c in (cfg, tcfg):
+        c.mica.train.use_mask = True
+        c.train.handoff_source = "cond"
+        c.tpu.sample_remat, c.tpu.sample_remat_chunk = True, 5
+        c.sr.model.diffusion.dpmpp_eta = 0.5
     j, t = jj.build_joint(cfg), tj.build_joint(tcfg, device="cpu")
     for f in ("variant", "sever_sr_grad", "loss_type", "train_sampler",
               "train_ddim_steps", "handoff_source", "handoff_grad_scale",
-              "train_arcface_prefix", "train_handoff_int8"):
+              "train_arcface_prefix", "train_handoff_int8", "sample_remat",
+              "sample_remat_chunk", "dpmpp_eta", "val_sampler",
+              "ddim_steps", "ddim_eta", "sampler_init"):
         assert getattr(t, f) == getattr(j, f), f
     np.testing.assert_array_equal(t.vertex_weights.numpy(),
                                   np.asarray(j.vertex_weights))
     assert len(np.unique(t.vertex_weights.numpy())) > 2
     np.testing.assert_array_equal(t.sched_train.alphas_cumprod,
                                   np.asarray(j.sched_train.alphas_cumprod))
+
+
+def test_build_joint_weights_follow_init_seed_only():
+    """``init_seed`` alone decides the random weights: not the global RNG's
+    state (seeded anew in every process), which construction leaves as it
+    was."""
+    cfg = tiny_cfg(t_defaults())
+    sds = []
+    for global_seed in (1, 2):
+        torch.manual_seed(global_seed)
+        mods = tj.build_joint(cfg, device="cpu", init_seed=4)
+        after = torch.rand(1)
+        torch.manual_seed(global_seed)
+        assert torch.equal(torch.rand(1), after)
+        sds.append({f"{k}.{n}": v for k, net in (
+            ("unet", mods.unet), ("arcface", mods.arcface),
+            ("mapping", mods.mapping)) for n, v in net.state_dict().items()})
+    assert all(torch.equal(v, sds[1][n]) for n, v in sds[0].items())
+    other = tj.build_joint(cfg, device="cpu", init_seed=5).unet
+    assert not torch.equal(other.conv_in.bias, mods.unet.conv_in.bias)
 
 
 def test_train_step_control_arms_and_generator_draws():
