@@ -8,22 +8,26 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for the fp32 checks;
 2. build: compile the CUDA kernels from ``sr3d_torch/kernels/csrc``;
-3. kernels: each kernel against its plain PyTorch version at the
-   flagship UNet's shapes (GN+Swish at one width of each level and two
-   stats + apply shapes; attention at the mid block, B = 8, 4 and 1), bf16
-   and fp32, with its time, the plain version's, one PyTorch library call's
-   for the same function (a yardstick the port never calls) and the card's
-   bound for the work; GN+Swish also at every other input of the main paths
-   (a meta-device trace of the UNet at B = 8, 4, 1), bf16, checked and timed
-   against the library call; each shape's plan (GN: one pass over a cluster
-   or stats + apply; attention: tensor cores over a cluster or CUDA cores;
-   conv: tensor or CUDA cores, split K), bit-equal repeats of the cluster
-   reductions, and the tensor-core instructions in the built attention and
-   conv libraries; the GN+Swish and attention gradients against autograd of
-   their plain versions; then the whole serving step and one whole train
+3. kernels: each kernel against its plain PyTorch version at the flagship
+   UNet's shapes (GN+Swish at one width of each level and two stats + apply
+   shapes; attention at the mid block, B = 8, 4 and 1, and past 256 tokens,
+   1024 and 4096), bf16 and fp32, with its time, the plain version's, one
+   PyTorch library call's for the same function (a yardstick the port never
+   calls) and the card's bound for the work; GN+Swish also at every other
+   input of the main paths (a meta-device trace of the UNet at B = 8, 4,
+   1), bf16, checked and timed against the library call; each shape's plan
+   (GN: one pass over a cluster or stats + apply; attention: tensor cores
+   over a cluster or CUDA cores; conv: tensor or CUDA cores, split K),
+   bit-equal repeats of the cluster reductions, and the tensor-core
+   instructions in the built attention, conv and int8 conv libraries; the
+   int8 conv bit for bit at every distinct int8 conv of the serving CLI's
+   UNet forward (a meta-device trace, B = 8, bf16) and in fp32 at both
+   strides and scale kinds, timed against im2col + ``torch._int_mm`` and
+   cuDNN's bf16 conv; the GN+Swish and attention gradients against autograd
+   of their plain versions; then the whole serving step and one whole train
    step (model2, then model3 flow-through) on a tiny config, on the GPU
-   against the plain versions on the CPU, and model3's gradients on the
-   GPU with the hand-off's per-step checkpoints on and off;
+   against the plain versions on the CPU, and model3's gradients on the GPU
+   with the hand-off's per-step checkpoints on and off;
 4. serving, DDIM-25 (η=1, marginal init) at the full width of
    ``configs/sr_sr3_VGGF2_16_128_model2.yml``, bf16, random weights from
    seed 0, synthetic FLAME at the real size: two requests (8 faces, then 3
@@ -42,13 +46,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    and backward alone, one flow-through step with the T=600 ancestral
    hand-off, and one severed step from the first step's state and draws
    (the same losses and MICA-branch updates, another UNet update); step
-   times, peak memory, the frozen prefix and kernel launches checked.
+   times, peak memory, the frozen prefix and kernel launches checked;
+8. checkpoints: a train state in the JAX package's ``.npz`` layout (random
+   weights, seed 0, the EMA seed 1) and a converted UNet, served with
+   ``Predictor.from_config(checkpoint=...)`` with and without the EMA, bit
+   for bit as the same weights served through ``params=``; load times;
+9. the serving CLI, ``sr3d_torch.serve.main``, on the flagship config with
+   that checkpoint over 11 synthetic 16² PNGs (DDIM-25, batch 8): the int8
+   default (58 int8 convs a forward) and ``--int8 0``, every bundle
+   checked, the PSNR between them; then int8 and bf16 requests of 8 in
+   turns, three each, their median times.
 
 The line before the last lists the kernels as JSON (top-level numbers at
 the widest main-path shape in bf16, the shapes above under ``shapes``,
 GN+Swish's slowest shape against the library call under ``main_path``;
-``launches`` from phase 4's DDIM-25 requests, ``train_launches`` from phase
-6's three steps, ``model3_launches`` from phase 7's three); the last line
+``launches`` from phase 4's DDIM-25 requests, but the int8 conv's from
+phase 9's int8 CLI run, its main path; ``cli_launches`` from that run,
+``train_launches`` from phase 6's three steps, ``model3_launches`` from
+phase 7's three); the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
 and when the repository's ``sr3d_torch`` package is not beside this script.
 """
@@ -62,6 +77,7 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -71,7 +87,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core rate
-            torch.float32: 67e12}    # fp32 outside the tensor cores
+            torch.float32: 67e12,    # fp32 outside the tensor cores
+            torch.int8: 1979e12}     # dense int8 tensor-core rate
 CONFIG = ROOT / "configs" / "sr_sr3_VGGF2_16_128_model2.yml"
 MODEL3 = ROOT / "configs" / "sr_sr3_VGGF2_16_128_model3.yml"
 TINY = ROOT / "configs" / "tiny_8_16_model2.yml"
@@ -150,9 +167,11 @@ GN_SHAPES = ((8, 192, 128, 128), (8, 64, 128, 128), (8, 384, 64, 64),
              (8, 512, 8, 8), (1, 64, 128, 128), (2, 64, 5, 10),
              (1, 512, 128, 128))
 # the mid block at B = 8, 4 (training) and 1, a 16² attention level (no
-# repo config has one), the 16_32 configs' mid block (4 tokens)
+# repo config has one), the 16_32 configs' mid block (4 tokens); past the
+# 256 tokens the tensor-core kernel holds, the long path: the default
+# attn_res (16) over 256² data (1024 tokens) and over 512² data (4096)
 ATTN_SHAPES = ((8, 64, 512), (4, 64, 512), (1, 64, 512), (2, 256, 128),
-               (8, 4, 512))
+               (8, 4, 512), (8, 1024, 512), (1, 4096, 512))
 MAIN_PATH_BATCHES = (8, 4, 1)   # DDIM-25 serving, training, T=600 serving
 
 
@@ -425,18 +444,176 @@ def phase_kernels(dev) -> dict:
     return rec
 
 
-def tensor_core_instructions(stem: str) -> tuple[int, int]:
-    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of the
-    library built from ``csrc/<stem>.cu``."""
+def sass_count(stem: str, op: str) -> int:
+    """Instructions whose text holds ``op`` in the SASS of the library
+    built from ``csrc/<stem>.cu``."""
     from sr3d_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run(
         [tool, "-sass", str(_build._target(_build.CSRC / f"{stem}.cu"))],
         capture_output=True, text=True, timeout=120, check=True).stdout
-    ops = [ln.split(";")[0] for ln in sass.splitlines()]
-    return (sum(" HGMMA." in o for o in ops),
-            sum(" HMMA." in o for o in ops))
+    return sum(op in ln.split(";")[0] for ln in sass.splitlines())
+
+
+def tensor_core_instructions(stem: str) -> tuple[int, int]:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of the
+    library built from ``csrc/<stem>.cu``."""
+    return sass_count(stem, " HGMMA."), sass_count(stem, " HMMA.")
+
+
+def main_path_int8_convs() -> list[tuple]:
+    """(B, Cin, H, W, O, stride, scale) of every int8 conv of one forward
+    of the flagship UNet as the serving CLI runs it (quant_min_res 1,
+    resampling on), at B = 8, in order: a meta-device trace (no memory, no
+    arithmetic).  ``scale`` is "static" (a ConvBlock: its GN affine) or
+    "dynamic" (a Downsample or Upsample)."""
+    import sr3d_torch.models.sr3_unet as unet_mod
+    import sr3d_torch.ops.quant as quant_mod
+
+    cfg = serving_cfg("ddim")
+    cfg.sr.model.unet.quant_min_res = 1
+    cfg.sr.model.unet.quant_resample = True
+    calls: list = []
+
+    def record(x, weight, bias=None, *, stride=1, padding=1, out_dtype=None,
+               a_scale=None):
+        B, C, H, W = x.shape
+        calls.append((B, C, H, W, weight.shape[0], stride,
+                      "dynamic" if a_scale is None else "static"))
+        return x.new_empty(B, weight.shape[0], (H - 1) // stride + 1,
+                           (W - 1) // stride + 1)
+
+    saved = (unet_mod.gn_swish, unet_mod.spatial_attention,
+             quant_mod.int8_conv)
+    unet_mod.gn_swish = lambda x, *a, **k: x
+    unet_mod.spatial_attention = lambda q, k, v, channels=None: q
+    quant_mod.int8_conv = record
+    try:
+        with torch.device("meta"), torch.no_grad():
+            unet = unet_mod.unet_from_config(cfg.sr.model.unet,
+                                             cfg.sr.model.diffusion)
+            unet(torch.zeros(8, int(cfg.sr.model.unet.in_channel), 128,
+                             128), torch.zeros(8, 1), quant=True)
+    finally:
+        (unet_mod.gn_swish, unet_mod.spatial_attention,
+         quant_mod.int8_conv) = saved
+    return calls
+
+
+def phase_int8_conv(dev) -> dict:
+    """The int8 conv kernel against its plain version, bit for bit, at
+    every distinct int8 conv of the serving CLI's UNet forward (bf16 in
+    and out, B = 8), then at fp32 in and every (stride, scale) pair; each
+    shape timed against its plain version, the library route (im2col +
+    ``torch._int_mm``, the same function) and cuDNN's bf16 conv; IMMA
+    required in the built library.  Returns the kernel's record."""
+    import torch.nn.functional as F
+
+    from sr3d_torch.kernels import int8_conv
+    from sr3d_torch.kernels.int8_conv import (
+        dynamic_scale,
+        int8_conv_reference,
+        quantize_weight,
+    )
+
+    n_imma = sass_count("int8_conv", " IMMA.")
+    print(f"  int8_conv library: {n_imma} IMMA instructions in its SASS "
+          f"(cuobjdump -sass)")
+    require(n_imma > 0, "the built int8 conv library has no IMMA "
+                        "instruction")
+    calls = main_path_int8_convs()
+    require(len(calls) == 58, f"{len(calls)} int8 convs a forward, want 58")
+    shapes = sorted(set(calls), key=lambda c: -c[1] * c[2] * c[3])
+    print(f"  int8_conv: {len(calls)} convs a UNet forward at the CLI's "
+          f"default (quant_min_res 1, resampling), {len(shapes)} distinct")
+    extra = [(8, 64, 128, 128, 64, st, sc, torch.float32)
+             for st in (1, 2) for sc in ("static", "dynamic")]
+    cases = [c + (torch.bfloat16,) for c in shapes] + extra
+
+    def library(x, w, b, stride, a):
+        """im2col + torch._int_mm: the library's int8 route."""
+        B, C, H, W = x.shape
+        xq = torch.round(x.float() / a).clamp_(-127, 127)
+        cols = F.unfold(xq.to(torch.bfloat16), 3, padding=1, stride=stride)
+        L = cols.shape[-1]
+        cols = cols.transpose(1, 2).reshape(B * L, -1).to(torch.int8)
+        wq, ws = quantize_weight(w)
+        y = torch._int_mm(cols, wq.reshape(w.shape[0], -1).t())
+        out = y.float() * (a * ws) + b
+        Ho = (H - 1) // stride + 1
+        return out.reshape(B, L, -1).transpose(1, 2).reshape(
+            B, -1, Ho, L // Ho).to(torch.bfloat16)
+
+    rec: dict = {}
+    for (B, C, H, W, O, stride, scale, dtype) in cases:
+        el = 2 if dtype == torch.bfloat16 else 4
+
+        def make(i, B=B, C=C, H=H, W=W, O=O, dtype=dtype):
+            g = torch.Generator(device=dev).manual_seed(400 + i)
+            return ((torch.randn(B, C, H, W, generator=g, device=dev) * 2)
+                    .to(dtype),
+                    torch.randn(O, C, 3, 3, generator=g, device=dev)
+                    * (9 * C) ** -0.5,
+                    torch.randn(O, generator=g, device=dev) * 0.1,
+                    torch.tensor(0.05, device=dev))
+
+        a0, nxt = _rotating(make, B * C * H * W * el)
+        st = scale == "static"
+        kw = dict(stride=stride, out_dtype=dtype)
+        call = lambda a: int8_conv(a[0], a[1], a[2], a_scale=a[3] if st
+                                   else None, **kw)
+        call_plain = lambda a: int8_conv_reference(
+            a[0], a[1], a[2], a_scale=a[3] if st else None, **kw)
+        out, ref = call(a0), call_plain(a0)
+        torch.cuda.synchronize()
+        e = float((out.float() - ref.float()).abs().max())
+        require(torch.equal(out, ref), f"int8_conv differs from its plain "
+                f"version at {(B, C, H, W)}->{O} stride {stride} {scale} "
+                f"{dtype}: max {e}")
+        Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        ops = 2 * B * Ho * Wo * O * 9 * C
+        nbytes = (B * C * H * W + B * O * Ho * Wo) * el + (9 * C + 2) * O * 4
+        bd = bound(nbytes, ops, torch.int8)
+        t_k = device_ms(lambda: call(nxt()), reps=5)
+        t_p = device_ms(lambda: call_plain(nxt()), reps=2)
+        row = {"shape": [B, C, H, W, O], "stride": stride, "scale": scale,
+               "dtype": _dtype_name(dtype), "ms": t_k, "plain_ms": t_p,
+               "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None,
+               "cudnn_bf16_ms": None}
+        if dtype == torch.bfloat16:
+            lib = lambda a: library(a[0], a[1], a[2], stride, a[3] if st
+                                    else dynamic_scale(a[0]))
+            require(torch.equal(lib(a0), out),
+                    f"im2col + _int_mm differs at {(B, C, H, W)}->{O}")
+            row["library_ms"] = device_ms(lambda: lib(nxt()), reps=2)
+            row["cudnn_bf16_ms"] = device_ms(lambda: (lambda a: F.conv2d(
+                a[0], a[1].to(dtype), a[2].to(dtype), stride, 1))(nxt()),
+                reps=5)
+        print(f"  int8_conv {_dtype_name(dtype)} x={[B, C, H, W]}->{O} "
+              f"stride {stride} {scale} scale: bit-equal to plain; kernel "
+              f"{t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s) plain {t_p:.4f} "
+              f"im2col+_int_mm {row['library_ms'] or float('nan'):.4f} "
+              f"cuDNN bf16 conv {row['cudnn_bf16_ms'] or float('nan'):.4f} "
+              f"bound {bd[0]:.4f} ({bd[1]})")
+        top = (dtype == torch.bfloat16 and (C, H, O, stride) ==
+               (192, 128, 64, 1))
+        _record(rec, "int8_conv", top, row)
+        if top:
+            rec["int8_conv"]["cudnn_bf16_ms"] = row["cudnn_bf16_ms"]
+        del a0, nxt, out, ref
+    # a forward's int8 convs: each shape's time times its count
+    by_shape = {(*r["shape"][:4], r["shape"][4], r["stride"], r["scale"]): r
+                for r in rec["int8_conv"]["shapes"]
+                if r["dtype"] == "bfloat16"}
+    fwd = {k: sum(by_shape[c][k] for c in calls)
+           for k in ("ms", "cudnn_bf16_ms", "bound_ms")}
+    print(f"  int8_conv, the {len(calls)} convs of a forward: kernel "
+          f"{fwd['ms']:.3f} ms, cuDNN bf16 conv at the same shapes "
+          f"{fwd['cudnn_bf16_ms']:.3f} ms, bound {fwd['bound_ms']:.4f} ms")
+    rec["int8_conv"].update(max_abs_err=0.0, convs_per_forward=len(calls),
+                            forward_ms=fwd)
+    return rec
 
 
 def phase_conv_kernels(dev) -> dict:
@@ -719,7 +896,7 @@ def phase_tiny_train(dev) -> None:
         require(off <= 0.01 * total, f"tiny {variant}: {off} parameters "
                                      f"apart")
         want_v = dict(want[variant], gn_stats=0, conv3x3=0,
-                      fused_gn_swish_conv3x3=0)
+                      fused_gn_swish_conv3x3=0, int8_conv=0)
         require(counts == want_v,
                 f"tiny {variant} launches {counts}, want {want_v}")
         unet_err = max(float((g_g[n] - g_c[n]).abs().max()) for n in g_c
@@ -791,7 +968,7 @@ def phase_tiny_slice(dev) -> None:
     # and 4 attention blocks per forward; 8 DDIM steps
     require(counts == {"gn_stats": 0, "gn_swish": 8 * 17,
                        "spatial_attention": 8 * 4, "conv3x3": 0,
-                       "fused_gn_swish_conv3x3": 0},
+                       "fused_gn_swish_conv3x3": 0, "int8_conv": 0},
             f"tiny-step launches {counts}")
     for k in ("sr", "identity", "verts", "lmk68"):
         require(errs[k] < 1e-3, f"tiny step {k} off by {errs[k]}")
@@ -945,7 +1122,7 @@ def phase_training(dev, flame) -> tuple[dict, dict]:
     rec_ = {"gn_stats": 0, "gn_swish": 54, "spatial_attention": 1}
     for counts, steps, reps in ((ddim_counts, 25, 3), (anc_counts, T, 1)):
         want = {k: reps * ((steps + 1) * per[k] + rec_[k]) for k in per}
-        want.update(conv3x3=0, fused_gn_swish_conv3x3=0)
+        want.update(conv3x3=0, fused_gn_swish_conv3x3=0, int8_conv=0)
         require(counts == want, f"train launches {counts}, want {want}")
     print(f"    params moved (UNet, ArcFace head, mapping); frozen prefix "
           f"and its BN statistics unchanged; EMA step {state.ema.step} "
@@ -1113,7 +1290,8 @@ def phase_model3(dev, flame) -> dict:
     def want(steps: int, recomputed: int, reps: int = 1) -> dict:
         w = {k: reps * ((1 + steps + recomputed) * per[k] + rec_[k])
              for k in per}
-        return dict(w, gn_stats=0, conv3x3=0, fused_gn_swish_conv3x3=0)
+        return dict(w, gn_stats=0, conv3x3=0, fused_gn_swish_conv3x3=0,
+                    int8_conv=0)
 
     for what, got, w in (("(a)", a_counts, want(25, 25, 3)),
                          ("(b)", b[3], want(25, 0)),
@@ -1127,6 +1305,189 @@ def phase_model3(dev, flame) -> dict:
           f"flow-through, (1 + steps) x 55 + 54 severed)")
     print(f"    {smi_line()}")
     return a_counts
+
+
+def write_jax_state_npz(path: Path, tree: dict, ema_sr: dict | None,
+                        step: int = 5) -> None:
+    """A train state in the JAX package's ``save_state_npz`` layout:
+    ``{"meta": {epoch, global_step}, "state": (step, params {arcface,
+    mapping, sr}, arcface_stats, opt_state, ema)}``, flattened in
+    ``jax.tree_util``'s order, with five stand-in optimizer leaves."""
+    from sr3d_torch.train.checkpoint import jax_tree_flatten
+
+    params = {k: tree[k] for k in ("arcface", "mapping", "sr")}
+    opt = tuple(np.zeros(4, np.float32) for _ in range(5))
+    ema = None if ema_sr is None else (ema_sr, np.int32(step))
+    leaves, _ = jax_tree_flatten(
+        {"meta": {"global_step": step, "epoch": 1},
+         "state": (np.int32(step), params, tree["arcface_stats"], opt, ema)})
+    np.savez(path, **{f"leaf_{i}": np.asarray(x)
+                      for i, x in enumerate(leaves)})
+
+
+def phase_checkpoints(dev, flame, tmp: Path, req) -> Path:
+    """Trained-checkpoint serving on the card: a train state in the JAX
+    layout (the port's random weights of seed 0, the EMA those of seed 1)
+    served with ``Predictor.from_config(checkpoint=…)``, without and with
+    ``use_ema``, bit for bit as the same weights served through
+    ``params=`` / the EMA; a converted-UNet ``.npz`` serves the same SR
+    images.  Returns the checkpoint's path."""
+    from sr3d_torch.serve import Predictor
+    from sr3d_torch.train.checkpoint import jax_tree_flatten
+    from sr3d_torch.train.joint import build_joint
+    from sr3d_torch.utils.bridge import export_jax_params, load_jax_ema
+
+    cfg = serving_cfg("ddim")
+    tree = export_jax_params(build_joint(cfg, flame=flame, init_seed=0,
+                                         device=dev))
+    ema_sr = export_jax_params(build_joint(cfg, flame=flame, init_seed=1,
+                                           device=dev))["sr"]
+    ckpt, conv = tmp / "best_model.npz", tmp / "unet_converted.npz"
+    t0 = time.perf_counter()
+    write_jax_state_npz(ckpt, tree, ema_sr)
+    np.savez(conv, **{f"leaf_{i}": x for i, x in
+                      enumerate(jax_tree_flatten(tree["sr"])[0])})
+    t_write = time.perf_counter() - t0
+    mb = ckpt.stat().st_size / 2 ** 20
+    print(f"[8] checkpoints: a {mb:.0f} MiB train state in the JAX layout "
+          f"and a converted UNet written in {t_write:.1f} s")
+
+    def load(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = Predictor.from_config(cfg, batch_size=8, flame=flame, **kw)
+        torch.cuda.synchronize()
+        return p, time.perf_counter() - t0
+
+    def run(p):
+        return p.predict(req, generator=torch.Generator().manual_seed(5))
+
+    ref_p, t_params = load(params=tree)
+    ref = run(ref_p)
+    ema_p = Predictor(cfg, ref_p.modules, 8, use_ema=True,
+                      ema=load_jax_ema(ema_sr, 5, dev))
+    ref_ema = run(ema_p)
+    del ref_p, ema_p
+    p, t_ckpt = load(checkpoint=str(ckpt))
+    got = run(p)
+    p_ema, t_ckpt_ema = load(checkpoint=str(ckpt), use_ema=True)
+    got_ema = run(p_ema)
+    require(p.ema is None and p_ema.ema is not None
+            and p_ema.ema.step == 5, "the checkpoint's EMA")
+    del p, p_ema
+    p_conv, t_conv = load(checkpoint=str(conv))
+    got_conv = run(p_conv)
+    require(p_conv.ema is None, "a converted UNet has no EMA")
+    del p_conv
+    for k in ref:
+        require(np.array_equal(got[k], ref[k]), f"checkpoint {k} differs "
+                f"from the same weights served through params=")
+        require(np.array_equal(got_ema[k], ref_ema[k]),
+                f"checkpoint use_ema {k} differs from the EMA served")
+    require(np.array_equal(got_conv["sr_u8"], ref["sr_u8"]),
+            "the converted UNet's SR images differ")
+    require(not np.array_equal(got_ema["sr_u8"], got["sr_u8"]),
+            "use_ema served the parameters")
+    print(f"    from_config: params= {t_params:.2f} s, checkpoint "
+          f"{t_ckpt:.2f} s, checkpoint + use_ema {t_ckpt_ema:.2f} s, "
+          f"converted UNet {t_conv:.2f} s (module build + load)")
+    print(f"    requests of 8 (DDIM-25): checkpoint = params= and "
+          f"checkpoint + use_ema = the EMA served, bit for bit in sr_u8, "
+          f"verts, lmk68, identity; the converted UNet's sr_u8 too")
+    return ckpt
+
+
+def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def phase_cli(dev, ckpt: Path, tmp: Path) -> dict:
+    """The serving CLI as users run it: ``python -m sr3d_torch.serve``'s
+    ``main`` on the flagship config with the checkpoint, over 11
+    synthetic 16² LR PNGs, DDIM-25 at batch 8: at the int8 default (58
+    int8 convs a forward) and with ``--int8 0``; every bundle checked, the
+    PSNR between the two runs' SR images; then int8 and bf16 requests of 8
+    in turns, three each, their medians.  Returns the kernel launches of
+    the int8 CLI run."""
+    from PIL import Image
+
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    from sr3d_torch.data.synthetic import synthetic_face_batch
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.ops.image import tensor_to_uint8
+    from sr3d_torch.serve import Predictor, apply_serving_flags, main
+
+    lr_dir = tmp / "lr"
+    lr_dir.mkdir()
+    faces = tensor_to_uint8(torch.from_numpy(
+        synthetic_face_batch(11, 16, seed=2))).to(torch.uint8).numpy()
+    names = [f"face_{i:02d}" for i in range(11)]
+    for n, f in zip(names, faces):
+        Image.fromarray(f).save(lr_dir / f"{n}.png")
+    base = ["-c", str(CONFIG), "-ckt", str(ckpt), "--input", str(lr_dir),
+            "--sampler", "ddim", "--steps", "25", "--batch", "8"]
+    runs = {}
+    for mode, extra in (("int8", []), ("bf16", ["--int8", "0"])):
+        out = tmp / f"out_{mode}"
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        require(main(base + ["--out", str(out)] + extra) == 0,
+                f"the CLI ({mode}) failed")
+        torch.cuda.synchronize()
+        runs[mode] = (time.perf_counter() - t0, launch_counts())
+        for n in names:
+            for f in ("mesh.ply", "mesh.obj", "identity.npy", "kpt7.npy",
+                      "kpt68.npy", f"{n}_sr.png"):
+                require((out / n / f).exists(), f"{mode} bundle {n}/{f}")
+            img = np.asarray(Image.open(out / n / f"{n}_sr.png"))
+            require(img.shape == (128, 128, 3) and img.dtype == np.uint8,
+                    f"{mode} SR image {n}: {img.shape} {img.dtype}")
+    chunks = 2   # 11 faces at batch 8
+    common = {"gn_stats": 0, "gn_swish": chunks * 55 * 25,
+              "spatial_attention": chunks * 25, "conv3x3": 0,
+              "fused_gn_swish_conv3x3": 0}
+    for mode, n8 in (("int8", 58), ("bf16", 0)):
+        want = dict(common, int8_conv=chunks * n8 * 25)
+        require(runs[mode][1] == want,
+                f"CLI {mode} launches {runs[mode][1]}, want {want}")
+    sr = {m: np.stack([np.asarray(Image.open(tmp / f"out_{m}" / n
+                                             / f"{n}_sr.png"))
+                       for n in names]) for m in runs}
+    psnr = psnr_u8(sr["int8"], sr["bf16"])
+    print(f"[9] serving CLI (python -m sr3d_torch.serve, {CONFIG.name}, "
+          f"DDIM-25, batch 8, 11 faces in 2 chunks): int8 default "
+          f"{runs['int8'][0]:.2f} s, --int8 0 {runs['bf16'][0]:.2f} s "
+          f"(each: predictor build + checkpoint load + 2 chunks + export); "
+          f"bundles complete; launches int8 {runs['int8'][1]}, "
+          f"bf16 {runs['bf16'][1]}")
+    print(f"    PSNR int8 vs bf16 SR images: {psnr:.2f} dB (random "
+          f"weights: a sanity figure, not a quality claim)")
+
+    cfg = update_cfg(get_cfg_defaults(), str(CONFIG))
+    preds = {}
+    for mode, q in (("int8", None), ("bf16", 0)):
+        c = apply_serving_flags(cfg.clone(), sampler="ddim", steps=25,
+                                int8=q)
+        preds[mode] = Predictor.from_config(c, checkpoint=str(ckpt),
+                                            batch_size=8)
+    imgs = faces[:8]
+    for p in preds.values():
+        p.warmup()
+    times: dict = {m: [] for m in preds}
+    for _ in range(3):
+        for mode in ("int8", "bf16"):
+            times[mode].append(serve(preds[mode], imgs)[1])
+    med = {m: float(np.median(t)) for m, t in times.items()}
+    print(f"    requests of 8 in turns (int8, bf16) x 3: int8 "
+          f"{[round(t * 1e3, 1) for t in times['int8']]} ms, median "
+          f"{8 / med['int8']:.2f} faces/s; bf16 "
+          f"{[round(t * 1e3, 1) for t in times['bf16']]} ms, median "
+          f"{8 / med['bf16']:.2f} faces/s; int8 / bf16 time "
+          f"{med['int8'] / med['bf16']:.3f}")
+    print(f"    {smi_line()}")
+    return runs["int8"][1]
 
 
 def main() -> int:
@@ -1164,6 +1525,7 @@ def main() -> int:
     rec.update(phase_conv_kernels(dev))
     print("    conv3x3 and fused_gn_swish_conv3x3 are on no model path (as "
           "in the JAX package): 0 launches on the main paths")
+    rec.update(phase_int8_conv(dev))
     phase_gradients(dev)
     phase_tiny_slice(dev)
     phase_tiny_train(dev)
@@ -1198,7 +1560,7 @@ def main() -> int:
     chunks = 2
     want = {"gn_stats": 0, "gn_swish": chunks * 55 * 25,
             "spatial_attention": chunks * 25, "conv3x3": 0,
-            "fused_gn_swish_conv3x3": 0}
+            "fused_gn_swish_conv3x3": 0, "int8_conv": 0}
     require(ddim_counts == want, f"DDIM launches {ddim_counts}, want {want}")
     print(f"    request of 8: {t_a * 1e3:.1f} ms = {8 / t_a:.2f} faces/s; "
           f"request of 3 (padded to 8): {t_b * 1e3:.1f} ms")
@@ -1219,7 +1581,7 @@ def main() -> int:
     check_outputs(out_d, 8, 5023, 300)
     require(dpm_counts == {"gn_stats": 0, "gn_swish": 55 * 25,
                            "spatial_attention": 25, "conv3x3": 0,
-                           "fused_gn_swish_conv3x3": 0},
+                           "fused_gn_swish_conv3x3": 0, "int8_conv": 0},
             f"dpm++ launches {dpm_counts}")
     print(f"    dpm++ (2M, eta 0, marginal init, 25 steps), request of 8: "
           f"{t_d * 1e3:.1f} ms = {8 / t_d:.2f} faces/s; outputs finite, "
@@ -1236,7 +1598,7 @@ def main() -> int:
     T = 600
     require(anc_counts == {"gn_stats": 0, "gn_swish": 55 * T,
                            "spatial_attention": T, "conv3x3": 0,
-                           "fused_gn_swish_conv3x3": 0},
+                           "fused_gn_swish_conv3x3": 0, "int8_conv": 0},
             f"ancestral launches {anc_counts}")
     print(f"[5] ancestral T={T}, one face: {t_c:.2f} s (first request, "
           f"includes cuDNN plan selection at batch 1); launches {anc_counts}")
@@ -1247,6 +1609,11 @@ def main() -> int:
 
     # 7. model3 training, full width
     model3_counts = phase_model3(dev, flame)
+
+    # 8-9. a trained checkpoint served, and the serving CLI
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ckpt = phase_checkpoints(dev, flame, Path(tmp), req_a)
+        cli_counts = phase_cli(dev, ckpt, Path(tmp))
 
     kernels = []
     meta = {
@@ -1260,11 +1627,18 @@ def main() -> int:
                                    "sr3d_tpu/kernels/fused_block.py:94"),
         "conv3x3": ("sr3d_torch/kernels/csrc/conv3x3.cu",
                     "sr3d_tpu/kernels/conv3x3.py:61"),
+        "int8_conv": ("sr3d_torch/kernels/csrc/int8_conv.cu",
+                      "sr3d_tpu/ops/quant.py:42"),
     }
     for name, (src, replaces) in meta.items():
         r = rec[name]
+        # launches: the serving requests' (phase 4, bf16); int8_conv's main
+        # path is the CLI's int8 default (phase 9)
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": ddim_counts[name],
+                        "replaces": replaces,
+                        "launches": (cli_counts if name == "int8_conv"
+                                     else ddim_counts)[name],
+                        "cli_launches": cli_counts[name],
                         "train_launches": train_counts[name],
                         "model3_launches": model3_counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1272,8 +1646,10 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "shapes": r["shapes"]})
-        if "main_path" in r:
-            kernels[-1]["main_path"] = r["main_path"]
+        for extra in ("main_path", "cudnn_bf16_ms", "convs_per_forward",
+                      "forward_ms"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line())

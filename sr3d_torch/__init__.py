@@ -11,7 +11,11 @@ vertex loss (``models.masking``) → Adam/AdamW and the EMA
 (``diffusion.ema``).  The UNet's GroupNorm+Swish and spatial attention run
 on hand-written CUDA kernels (``kernels/``), differentiable, built with
 ``nvcc`` at first use; ``kernels/`` also holds the conv3x3 and fused
-GN→Swish→conv3x3 kernels, public functions that no model path calls.
+GN→Swish→conv3x3 kernels, public functions that no model path calls, and
+the w8a8 int8 conv that the int8 serving UNet (``ops/quant.py``) runs.
+The JAX package's checkpoints are read without JAX
+(``train/checkpoint.py``); ``python -m sr3d_torch.serve`` is the
+batch-serving CLI.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Importing the package needs neither a GPU nor a CUDA compiler.

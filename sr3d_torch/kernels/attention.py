@@ -12,8 +12,9 @@ outside any Pallas kernel).
 
 ``attn_plan`` names the kernel for a shape (``mma``: bf16 on the tensor
 cores over a thread-block cluster; ``simt``: CUDA cores, for fp32 and bf16
-with C not a multiple of 8); it is pure Python, so the CPU tests hold its
-choices.
+with C not a multiple of 8; ``long``: CUDA cores in two passes over key
+tiles, for more than ``MAX_TOKENS`` tokens in either dtype); it is pure
+Python, so the CPU tests hold its choices.
 
 The wrapper runs the plain version for a CPU tensor and a kernel for a CUDA
 tensor, never one in place of the other, and counts kernel launches in
@@ -32,7 +33,7 @@ from ._build import check, function
 
 _P = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_TOKENS = 256  # score rows the kernels keep in shared memory
+MAX_TOKENS = 256  # score rows the mma and simt kernels keep on chip
 SLICE = 64  # channels of one CTA's slice
 MAX_CLUSTER = 8  # the portable cluster size
 
@@ -41,8 +42,9 @@ MAX_CLUSTER = 8  # the portable cluster size
 class AttnPlan:
     """How one attention call runs on the card.  ``path`` is ``"mma"``
     (``attn_mma_kernel``: a cluster of ``cluster`` CTAs, one per 64-channel
-    slice, for each (64-query tile, image) pair) or ``"simt"``
-    (``attn_fwd_kernel``); ``why`` says why."""
+    slice, for each (64-query tile, image) pair), ``"simt"``
+    (``attn_fwd_kernel``) or ``"long"`` (``attn_long_kernel``); ``why`` says
+    why."""
 
     path: str
     why: str
@@ -51,6 +53,9 @@ class AttnPlan:
 
 def attn_plan(HW: int, C: int, dtype: torch.dtype) -> AttnPlan:
     """The kernel for q, k, v ``[B, HW, C]`` of ``dtype``."""
+    if HW > MAX_TOKENS:
+        return AttnPlan("long", f"{HW} tokens > {MAX_TOKENS}: two passes "
+                                f"over key tiles")
     if dtype != torch.bfloat16:
         return AttnPlan("simt", "fp32: tensor cores would mean TF32")
     if C % 8:
@@ -103,20 +108,26 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("spatial_attention: q, k, v must be contiguous "
                              "[B, HW, C] tensors of one shape, dtype, device")
     B, HW, Cq = q.shape
-    if HW > MAX_TOKENS:
-        raise ValueError(f"spatial_attention: {HW} tokens > {MAX_TOKENS}, "
-                         f"the kernel's limit")
     plan = attn_plan(HW, Cq, q.dtype)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if plan.path == "long":
+        fn = function("attention", "sr3d_attention_long_fwd",
+                      [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int, _P])
+        check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, HW, Cq, scale, _DTYPES[q.dtype], stream),
+              "spatial_attention")
+        spatial_attention.launches += 1
+        return out
     if plan.path == "mma":   # 16-byte loads; a view may start anywhere
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
-    out = torch.empty_like(q)
     fn = function("attention", "sr3d_attention_fwd",
                   [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_int, ctypes.c_int, _P])
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, HW,
-             Cq, scale, _DTYPES[q.dtype], plan.cluster,
-             torch.cuda.current_stream(q.device).cuda_stream),
+             Cq, scale, _DTYPES[q.dtype], plan.cluster, stream),
           "spatial_attention")
     spatial_attention.launches += 1
     return out

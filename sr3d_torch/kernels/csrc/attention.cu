@@ -14,7 +14,7 @@
 // sets the time is latency and how many SMs take part.  The head dim 512 is
 // above PyTorch's flash-attention cap, which is why the port writes its own.
 //
-// Two kernels; the wrapper's plan (attn_plan in attention.py) picks one by
+// Three kernels; the wrapper's plan (attn_plan in attention.py) picks one by
 // dtype and shape, never by failure:
 //
 // attn_mma_kernel: bf16, C a multiple of 8, HW <= 256.  Tensor cores over a
@@ -53,6 +53,18 @@
 // attn_fwd_kernel<T>: fp32 (tensor cores would mean TF32) and bf16 with C
 // not a multiple of 8: the first port, CUDA-core fp32 FMAs.  One block per
 // (16 query rows, image), the 16 x HW score rows in shared memory.
+//
+// attn_long_kernel<T>: HW > 256 (the score rows no longer fit), fp32 and
+// bf16, any C: CUDA-core fp32 FMAs, two passes over 32-key tiles.  One block
+// per (16 query rows, 256-channel slice of the output, image).  Pass 1
+// computes each tile's scores (all C channels) and keeps the running row max
+// m and sum l = sum exp(s - m), rescaled when m grows.  Pass 2 computes the
+// scores again, forms P = exp(s - m) / l, rounds it to T as the reference
+// rounds the normalised P, and adds P V_slice into 16 fp32 accumulators a
+// thread.  Nothing but q, k, v and out touches device memory.  Each slice's
+// block computes the scores again, and every key tile is read twice: right
+// and simple first (the config defaults reach it at 1024 tokens, C = 512,
+// when the data is twice image_size; no repo config does).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -446,6 +458,117 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- the long-sequence kernel (HW > kMaxHW) -------------------------------
+constexpr int LQ = 16;    // query rows per block
+constexpr int LK = 32;    // keys per tile: one a lane in the softmax passes
+constexpr int LCK = 32;   // channel chunk of Q K^T
+constexpr int LCV = 256;  // output channels per block: one a thread
+static_assert(LCV == kThreads && LQ * LK == 2 * kThreads &&
+                  LQ == 2 * (kThreads / 32),
+              "a thread owns one output channel and two scores; a warp "
+              "two rows");
+
+// scores of query rows [q0, q0 + LQ) against keys [k0, k0 + LK), all C
+// channels, scaled, -inf past hw, into sS; every thread calls it
+template <typename T>
+__device__ __forceinline__ void long_scores(
+    const T* __restrict__ q, const T* __restrict__ k, int hw, int C,
+    float scale, int q0, int k0, float (*sQ)[LCK + 1],
+    float (*sK)[LCK + 1], float (*sS)[LK + 1]) {
+  const int tid = threadIdx.x;
+  float acc[2] = {0.f, 0.f};
+  for (int c0 = 0; c0 < C; c0 += LCK) {
+    for (int i = tid; i < LQ * LCK; i += kThreads) {
+      const int r = i / LCK, c = i % LCK;
+      sQ[r][c] = (q0 + r < hw && c0 + c < C)
+                     ? to_f<T>(q[(int64_t)(q0 + r) * C + c0 + c])
+                     : 0.f;
+    }
+    for (int i = tid; i < LK * LCK; i += kThreads) {
+      const int j = i / LCK, c = i % LCK;
+      sK[j][c] = (k0 + j < hw && c0 + c < C)
+                     ? to_f<T>(k[(int64_t)(k0 + j) * C + c0 + c])
+                     : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int idx = tid + e * kThreads, r = idx / LK, j = idx % LK;
+#pragma unroll 8
+      for (int c = 0; c < LCK; ++c) acc[e] += sQ[r][c] * sK[j][c];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int idx = tid + e * kThreads, r = idx / LK, j = idx % LK;
+    sS[r][j] = k0 + j < hw ? acc[e] * scale : -INFINITY;
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    attn_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out, int hw,
+                     int C, float scale) {
+  __shared__ float sQ[LQ][LCK + 1];
+  __shared__ float sK[LK][LCK + 1];
+  __shared__ float sS[LQ][LK + 1];
+  __shared__ float sV[LK][LCV];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * LQ, cv0 = blockIdx.y * LCV;
+  const int64_t base = (int64_t)blockIdx.z * hw * C;
+  q += base;
+  k += base;
+  v += base;
+  out += base;
+
+  // ---- pass 1: row max and sum of exponentials; warp w owns rows 2w, 2w+1
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int k0 = 0; k0 < hw; k0 += LK) {
+    long_scores<T>(q, k, hw, C, scale, q0, k0, sQ, sK, sS);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float s = sS[2 * warp + i][lane];
+      const float mn = fmaxf(m[i], warp_max(s));
+      l[i] = l[i] * expf(m[i] - mn) + warp_sum(expf(s - mn));
+      m[i] = mn;
+    }
+  }
+
+  // ---- pass 2: P = exp(s - m) / l rounded to T, out += P V_slice
+  float acc[LQ];
+#pragma unroll
+  for (int r = 0; r < LQ; ++r) acc[r] = 0.f;
+  const int c = cv0 + tid;
+  for (int k0 = 0; k0 < hw; k0 += LK) {
+    long_scores<T>(q, k, hw, C, scale, q0, k0, sQ, sK, sS);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 2 * warp + i;
+      sS[r][lane] = k0 + lane < hw
+                        ? to_f<T>(from_f<T>(expf(sS[r][lane] - m[i]) / l[i]))
+                        : 0.f;
+    }
+    for (int j = 0; j < LK; ++j)
+      sV[j][tid] = (k0 + j < hw && c < C)
+                       ? to_f<T>(v[(int64_t)(k0 + j) * C + c])
+                       : 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < LQ; ++r)
+#pragma unroll 8
+      for (int j = 0; j < LK; ++j) acc[r] += sS[r][j] * sV[j][tid];
+    __syncthreads();  // sS and sV are rewritten by the next tile
+  }
+  if (c < C)
+#pragma unroll
+    for (int r = 0; r < LQ; ++r)
+      if (q0 + r < hw) out[(int64_t)(q0 + r) * C + c] = from_f<T>(acc[r]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -507,6 +630,31 @@ int sr3d_attention_fwd(const void* q, const void* k, const void* v, void* out,
         static_cast<__nv_bfloat16*>(out), hw, C, scale);
   } else {
     attn_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), hw, C, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The long-sequence kernel, any hw (the plan sends it hw > 256): q, k, v,
+// out as above, bf16 (is_bf16 = 1) or fp32.  Returns the launch's
+// cudaError_t.
+int sr3d_attention_long_fwd(const void* q, const void* k, const void* v,
+                            void* out, int batch, int hw, int C, float scale,
+                            int is_bf16, void* stream) {
+  if (hw < 1 || C < 1 || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)((hw + LQ - 1) / LQ),
+                  (unsigned)((C + LCV - 1) / LCV), (unsigned)batch);
+  if (is_bf16) {
+    attn_long_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), hw, C, scale);
+  } else {
+    attn_long_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), hw, C, scale);
   }

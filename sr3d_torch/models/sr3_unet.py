@@ -19,8 +19,19 @@ reference UNet:
 Submodules carry the flax scope names (``down_0_0.res_block.block1.norm``,
 ``mid_0.attn.qkv``, ...), so ``utils/bridge.py`` maps a JAX parameter tree
 onto this module by transposing, not renaming.  Parameters are fp32 and
-activations run in ``dtype`` (bf16 by default).  The w8a8 int8 path
-(``quant_min_res``) is not ported yet.
+activations run in ``dtype`` (bf16 by default).
+
+The w8a8 int8 serving path (``ops/quant.py``) is a call-time switch,
+``forward(..., quant=True)``, as in the JAX package: the ResnetBlocks'
+convs quantize at levels whose actual activation resolution (the NCHW
+``shape[2]``, not the ``image_size`` track) is at least ``quant_min_res``
+(0: never), each with the static activation scale of its GN affine;
+with ``quant_resample`` the Downsample and Upsample convs too (the
+Upsample gated on its resolution after the 2× resize), with the dynamic
+scale.  The mid blocks, ``conv_in``, ``res_conv`` and ``final_conv``
+never quantize.  The convs that can are ``Int8Conv``s, ``Conv2d``s with
+the same parameters, so checkpoints load unchanged and ``quant=False``
+is the fp forward bit for bit.
 
 Train mode (``.train()``) adds what flax's ``remat=True`` adds: with
 ``remat``, each ``ResnetBlocWithAttn`` runs under
@@ -51,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import spatial_attention
 from ..kernels.groupnorm_swish import gn_swish
+from ..ops.quant import Int8Conv, gn_static_scale
 from .layers import Conv2d, Linear
 
 
@@ -131,20 +143,27 @@ def apply_dropout(x: torch.Tensor, rate: float,
 
 
 class ConvBlock(nn.Module):
-    """GroupNorm → Swish → (Dropout) → Conv3×3 (the reference ``Block``)."""
+    """GroupNorm → Swish → (Dropout) → Conv3×3 (the reference ``Block``);
+    ``quant`` runs the conv in int8 with the static scale of the GN
+    affine."""
 
     def __init__(self, dim_in: int, dim_out: int, groups: int,
                  dtype: torch.dtype, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
         self.norm = GroupNormSwish(dim_in, groups)
-        self.conv = Conv2d(dim_in, dim_out, 3, padding=1, compute_dtype=dtype)
+        self.conv = Int8Conv(dim_in, dim_out, 3, padding=1,
+                             compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                quant: bool = False) -> torch.Tensor:
         h = self.norm(x)
         if generator is not None and self.dropout > 0.0:
             h = apply_dropout(h, self.dropout, generator)
+        if quant:
+            return self.conv(h, quant=True, a_scale=gn_static_scale(
+                self.norm.scale, self.norm.bias))
         return self.conv(h)
 
 
@@ -159,10 +178,11 @@ class ResnetBlock(nn.Module):
                          if dim_in != dim_out else None)
 
     def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        h = self.block1(x)
+                generator: torch.Generator | None = None,
+                quant: bool = False) -> torch.Tensor:
+        h = self.block1(x, quant=quant)
         h = self.noise_func(h, time_emb)
-        h = self.block2(h, generator)
+        h = self.block2(h, generator, quant)
         if self.res_conv is not None:
             x = self.res_conv(x)
         return h + x
@@ -199,36 +219,41 @@ class ResnetBlocWithAttn(nn.Module):
                      else None)
 
     def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
-                seed: int | None = None) -> torch.Tensor:
-        """``seed`` seeds this call's dropout masks (train mode)."""
+                seed: int | None = None, quant: bool = False
+                ) -> torch.Tensor:
+        """``seed`` seeds this call's dropout masks (train mode);
+        ``quant`` runs the ResnetBlock's convs in int8."""
         gen = None
         if seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(seed)
-        x = self.res_block(x, time_emb, gen)
+        x = self.res_block(x, time_emb, gen, quant)
         return x if self.attn is None else self.attn(x)
 
 
 class Downsample(nn.Module):
-    """Strided 3×3 conv."""
+    """Strided 3×3 conv; ``quant``: int8 with the dynamic scale (a
+    residual sum has no GN affine to bound it)."""
 
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
-        self.conv = Conv2d(dim, dim, 3, stride=2, padding=1,
-                           compute_dtype=dtype)
+        self.conv = Int8Conv(dim, dim, 3, stride=2, padding=1,
+                             compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        return self.conv(x, quant=quant)
 
 
 class Upsample(nn.Module):
-    """Nearest 2× resize + 3×3 conv."""
+    """Nearest 2× resize + 3×3 conv; ``quant`` as ``Downsample``'s, its
+    scale taken after the resize."""
 
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
-        self.conv = Conv2d(dim, dim, 3, padding=1, compute_dtype=dtype)
+        self.conv = Int8Conv(dim, dim, 3, padding=1, compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"),
+                         quant=quant)
 
 
 class SR3UNet(nn.Module):
@@ -241,13 +266,11 @@ class SR3UNet(nn.Module):
                  channel_mults: Sequence[int] = (1, 2, 4, 8, 8),
                  attn_res: Sequence[int] = (16,), res_blocks: int = 2,
                  image_size: int = 128, dtype: torch.dtype = torch.bfloat16,
-                 quant_min_res: int = 0, dropout: float = 0.0,
-                 remat: bool = False):
+                 quant_min_res: int = 0, quant_resample: bool = False,
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
-        if quant_min_res > 0:
-            raise NotImplementedError(
-                "the w8a8 int8 UNet path (quant_min_res > 0) is not ported "
-                "yet; serve with quant_min_res: 0")
+        self.quant_min_res = int(quant_min_res)
+        self.quant_resample = bool(quant_resample)
         self.in_channel = in_channel
         self.dtype = dtype
         self.dropout, self.remat = dropout, remat
@@ -298,17 +321,29 @@ class SR3UNet(nn.Module):
         self.add_module(name, module)
         self.plan.append((kind, name))
 
+    def _quant_gate(self, kind: str, res: int) -> bool:
+        """Whether a ``kind`` step whose input is ``res`` pixels high
+        quantizes (under ``forward(quant=True)``)."""
+        if kind == "upsample":
+            res *= 2     # the conv runs after the 2× resize
+        if kind in ("downsample", "upsample") and not self.quant_resample:
+            return False
+        return kind != "mid" and 0 < self.quant_min_res <= res
+
     def forward(self, x: torch.Tensor, time: torch.Tensor, *,
                 generator: torch.Generator | None = None,
                 deterministic: bool = True,
-                remat: bool | None = None) -> torch.Tensor:
+                remat: bool | None = None,
+                quant: bool = False) -> torch.Tensor:
         """Dropout is drawn only in train mode with ``deterministic=False``
         and dropout > 0; then ``generator`` (on ``x``'s device) is
         required: it seeds every block's dropout masks.  ``remat``
         (default: train mode and ``self.remat``) checkpoints the blocks
         where grad is enabled; a caller that checkpoints the whole forward
         fixes it, so that the recompute runs as the forward did whatever
-        the mode is by then."""
+        the mode is by then.  ``quant`` runs the convs that
+        ``quant_min_res`` / ``quant_resample`` select in int8 (serving
+        only: rounding has no gradient)."""
         in_dtype = x.dtype
         drop = self.training and not deterministic and self.dropout > 0.0
         if drop and generator is None:
@@ -328,16 +363,17 @@ class SR3UNet(nn.Module):
         feats = [h]
         for kind, name in self.plan:
             mod = getattr(self, name)
+            q = quant and self._quant_gate(kind, h.shape[2])
             if kind in ("down", "mid", "up"):
                 if kind == "up":
                     h = torch.cat([h, feats.pop()], dim=1)
                 if remat:
-                    h = checkpoint(mod, h, t, seeds[name],
+                    h = checkpoint(mod, h, t, seeds[name], q,
                                    use_reentrant=False)
                 else:
-                    h = mod(h, t, seeds[name])
+                    h = mod(h, t, seeds[name], q)
             else:
-                h = mod(h)
+                h = mod(h, q)
             if kind in ("down", "downsample"):
                 feats.append(h)
         return self.final_conv(h).to(in_dtype)
@@ -359,6 +395,7 @@ def unet_from_config(unet_cfg, diffusion_cfg, *,
         image_size=int(diffusion_cfg["image_size"]),
         dtype=dtype,
         quant_min_res=int(unet_cfg.get("quant_min_res", 0) or 0),
+        quant_resample=bool(unet_cfg.get("quant_resample", False)),
         dropout=float(unet_cfg.get("dropout", 0.0)),
         remat=remat,
     )

@@ -12,8 +12,8 @@ gradient accumulation and the EMA.
 Both variants train: model2 samples without gradient and hands off through
 the uint8 round trip; model3 hands off through the continuous blob, and
 unless ``sever_sr_grad`` its sampling stays on the autograd tape (each
-step checkpointed), so l_mica trains the UNet too.  The int8 hand-off
-(``train_handoff_int8``) is not ported yet; the steps raise for it.
+step checkpointed), so l_mica trains the UNet too.  With
+``train_handoff_int8`` a severed hand-off samples with the w8a8 int8 UNet.
 
 The public steps keep the JAX package's layouts: the batch's ``"HR"``,
 ``"SR"`` and the returned ``"sr"`` / ``"img224"`` are NHWC; the UNet and
@@ -297,6 +297,25 @@ def gt_flame_vertices(modules: JointModules, shape_params: torch.Tensor
     return verts
 
 
+def _handoff_quant(modules: JointModules, differentiable: bool) -> bool:
+    """Whether the hand-off samples with the int8 UNet
+    (``train_handoff_int8``), with the JAX package's two refusals."""
+    if not modules.train_handoff_int8:
+        return False
+    if differentiable:
+        raise ValueError(
+            "train_handoff_int8 requires a gradient-severed hand-off "
+            "(model2, or model3 with train.sever_sr_grad) — the w8a8 int8 "
+            "rounding has zero gradient and would silently sever "
+            "flow-through model3's l_mica→UNet path")
+    if modules.unet.quant_min_res <= 0:
+        raise ValueError(
+            "train_handoff_int8 is set but sr.model.unet.quant_min_res is "
+            "0 — set quant_min_res (e.g. 1 = every ResnetBlock conv) to "
+            "choose which levels quantize")
+    return True
+
+
 def _handoff_sample(modules: JointModules, cond: torch.Tensor,
                     generator: torch.Generator | None,
                     noise: Sequence[torch.Tensor] | None,
@@ -304,19 +323,18 @@ def _handoff_sample(modules: JointModules, cond: torch.Tensor,
     """The in-step SR sample (NCHW) of the NCHW conditioning: the T-step
     ancestral loop (``ddpm``) or DDIM η = 1 with marginal init at
     ``train_ddim_steps`` (``ddim``); on the autograd tape when
-    ``differentiable``.  A ``sample_remat_chunk`` that does not divide
-    ``train_ddim_steps`` falls back to per-step checkpoints with a warning
-    (the same gradients); the ancestral loop raises for one that does not
-    divide T."""
-    if modules.train_handoff_int8:
-        raise NotImplementedError(
-            "train_handoff_int8 (the w8a8 int8 hand-off) is not ported yet; "
-            "a later slice ports it")
+    ``differentiable``; with the int8 UNet under ``train_handoff_int8``.
+    A ``sample_remat_chunk`` that does not divide ``train_ddim_steps``
+    falls back to per-step checkpoints with a warning (the same
+    gradients); the ancestral loop raises for one that does not divide
+    T."""
+    quant = _handoff_quant(modules, differentiable)
     # The UNet's own block checkpoints are fixed here, not left to its
     # mode: a checkpointed sampling step must recompute as it ran.  Under
     # the per-step checkpoints they would only recompute twice.
     denoise = functools.partial(
-        modules.unet, remat=modules.unet.remat and not modules.sample_remat)
+        modules.unet, remat=modules.unet.remat and not modules.sample_remat,
+        quant=quant)
     kw = dict(generator=generator, noise=noise, differentiable=differentiable,
               remat=modules.sample_remat)
     chunk = modules.sample_remat_chunk
@@ -510,17 +528,20 @@ def make_eval_step():
     return eval_step
 
 
-def make_val_step(use_ema: bool = False):
+def make_val_step(use_ema: bool = False, int8: bool | None = None):
     """``val_step(modules, batch, *, generator=None, noise=None, ema=None)
-    -> dict``: sampling with ``modules.val_sampler`` (``ddpm`` = the
-    ancestral loop, ``ddim`` = strided DDIM, ``dpm++`` = DPM-Solver++(2M)
-    at ``ddim_steps``, the 2M SDE where ``dpmpp_eta`` > 0), then the MICA
-    branch.  With
-    ``use_ema`` the UNet samples with the EMA's parameters (``ema``, a
-    ``diffusion.ema.EmaState``; without one, with its own, as the JAX
-    package does).  ``noise`` replays an explicit noise sequence (see
-    ``diffusion.gaussian``).  Returns NHWC ``sr`` [−1, 1] and ``img224``
-    [0, 1], ``identity`` (shape code), ``verts`` and ``lmk68``."""
+    -> dict``: sampling with ``modules.val_sampler`` (``ddim`` = strided
+    DDIM, ``dpm++`` = DPM-Solver++(2M) at ``ddim_steps``, the 2M SDE where
+    ``dpmpp_eta`` > 0, any other name = the ancestral loop, as in the JAX
+    package), then the MICA branch.  With ``use_ema`` the UNet samples with
+    the EMA's parameters (``ema``, a ``diffusion.ema.EmaState``; without
+    one, with its own, as the JAX package does).  ``int8``: None samples
+    with the w8a8 int8 UNet iff ``quant_min_res`` > 0 (serving), False
+    forces fp and True int8.  ``noise`` replays an explicit noise sequence
+    (see ``diffusion.gaussian``).  Returns NHWC ``sr`` [−1, 1] and
+    ``img224`` [0, 1], ``identity`` (shape code), ``verts`` and ``lmk68``;
+    when the batch has ``flame_shape``, also ``l_mica``, the masked vertex
+    L1 against its ground-truth vertices."""
 
     @torch.no_grad()
     def val_step(modules: JointModules, batch: dict, *,
@@ -529,10 +550,13 @@ def make_val_step(use_ema: bool = False):
                  ema: EmaState | None = None) -> dict:
         cond = batch["SR"].to(modules.device, torch.float32) \
             .permute(0, 3, 1, 2).contiguous()
-        denoise = modules.unet
+        quant = (modules.unet.quant_min_res > 0 if int8 is None
+                 else bool(int8))
+        denoise = functools.partial(modules.unet, quant=quant)
         if use_ema and ema is not None:
             def denoise(x, t):
-                return functional_call(modules.unet, ema.params, (x, t))
+                return functional_call(modules.unet, ema.params, (x, t),
+                                       {"quant": quant})
         kw = dict(generator=generator, noise=noise, init=modules.sampler_init)
         if modules.val_sampler == "ddim":
             final = ddim_sample_loop(denoise, modules.sched_val, cond,
@@ -542,16 +566,19 @@ def make_val_step(use_ema: bool = False):
             final = dpmpp_sample_loop(denoise, modules.sched_val, cond,
                                       num_steps=modules.ddim_steps,
                                       eta=modules.dpmpp_eta, **kw)
-        elif modules.val_sampler == "ddpm":
-            final = p_sample_loop(denoise, modules.sched_val, cond, **kw)
         else:
-            raise ValueError(f"unknown val sampler {modules.val_sampler!r}"
-                             f" (ddpm | ddim | dpm++)")
+            final = p_sample_loop(denoise, modules.sched_val, cond, **kw)
         sr = final.permute(0, 2, 3, 1)
         img224, blob = sr_to_mica_inputs(sr, image_size=modules.image_size,
                                          blob_size=modules.blob_size)
         verts, code = decode_mica(modules, encode_mica(modules, blob))
-        return {"sr": sr, "img224": img224, "identity": code, "verts": verts,
-                "lmk68": compute_landmarks(modules.flame, verts)}
+        out = {"sr": sr, "img224": img224, "identity": code, "verts": verts,
+               "lmk68": compute_landmarks(modules.flame, verts)}
+        if "flame_shape" in batch:
+            gt = gt_flame_vertices(modules, batch["flame_shape"].to(
+                modules.device, torch.float32))
+            out["l_mica"] = masking.masked_vertex_l1(verts, gt,
+                                                     modules.vertex_weights)
+        return out
 
     return val_step

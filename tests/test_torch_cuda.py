@@ -15,6 +15,7 @@ from sr3d_torch.kernels import (
     fused_gn_swish_conv3x3,
     gn_stats,
     gn_swish,
+    int8_conv,
     launch_counts,
     reset_launch_counts,
     spatial_attention,
@@ -30,6 +31,7 @@ from sr3d_torch.kernels.groupnorm_swish import (
     gn_stats_reference,
     gn_swish_reference,
 )
+from sr3d_torch.kernels.int8_conv import int8_conv_reference
 from sr3d_torch.models.sr3_unet import SR3UNet
 
 pytestmark = pytest.mark.cuda
@@ -172,16 +174,28 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
     conv3x3(xh, w)
     fused_gn_swish_conv3x3(xh, gamma, beta, w, torch.zeros(16, device=cuda),
                            8)
+    w8 = torch.randn(16, 32, 3, 3, device=cuda)
+    int8_conv(x, w8)
     # gn_swish: one launch, no gn_stats; the fused block's NHWC stats: one
     assert launch_counts() == {"gn_stats": 1, "gn_swish": 1,
                                "spatial_attention": 1, "conv3x3": 1,
-                               "fused_gn_swish_conv3x3": 1}
+                               "fused_gn_swish_conv3x3": 1, "int8_conv": 1}
     with pytest.raises(TypeError):
         gn_stats(x.half())
     with pytest.raises(ValueError):
         gn_swish(x.transpose(2, 3), gamma, beta, 8)
     with pytest.raises(ValueError):
-        spatial_attention(*(torch.randn(1, 300, 32, device=cuda),) * 3)
+        spatial_attention(q, q[:, :32], q)
+    with pytest.raises(ValueError):
+        int8_conv(x.transpose(2, 3), w8)
+    with pytest.raises(ValueError):
+        int8_conv(x, w8, padding=0)
+    with pytest.raises(ValueError):
+        int8_conv(x, w8, stride=3)
+    with pytest.raises(TypeError):
+        int8_conv(x.half(), w8)
+    assert launch_counts()["int8_conv"] == 1
+    assert launch_counts()["spatial_attention"] == 1
     with pytest.raises(ValueError):
         conv3x3(xh, w[:, :, :16])
     with pytest.raises(ValueError):
@@ -370,3 +384,78 @@ def test_remat_keeps_gradients_with_dropout(cuda):
     for n, gr in res[0][1].items():
         torch.testing.assert_close(res[1][1][n], gr, rtol=1e-5, atol=1e-7,
                                    msg=n)
+
+
+# Attention past MAX_TOKENS (the long path: two passes over key tiles).  P
+# is rounded to v's type after the division on both sides, but the sums of
+# exponentials run in other orders, so a P on a rounding boundary may land
+# one ulp apart: the attention tolerance above.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 1024, 512),  # 256² data at the default attn_res (16)
+    (1, 257, 64),    # one key past the on-chip limit, a ragged tile
+    (1, 300, 40),    # C not a multiple of the channel chunk
+])
+def test_attention_long_path_matches_plain(cuda, shape, dtype):
+    assert attn_plan(shape[1], shape[2], dtype).path == "long"
+    g = torch.Generator(device="cpu").manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for _ in range(3))
+    reset_launch_counts()
+    out = spatial_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts()["spatial_attention"] == 1
+    ref = spatial_attention_reference(q, k, v, shape[-1] ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+# The int8 conv sums integers exactly and dequantizes in the plain
+# version's order, without FMA contraction: bit for bit.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("xshape,O", [
+    ((2, 64, 16, 16), 64),     # the tiny UNet's widths
+    ((1, 40, 9, 13), 24),      # ragged Cin (40 = 32 + 8), odd H, W, O
+    ((2, 192, 32, 32), 64),    # an up-block input of the flagship
+    ((1, 6, 130, 70), 16),     # Cin below one chunk, W > 64: two tiles
+])
+def test_int8_conv_matches_plain_bit_for_bit(cuda, xshape, O, stride,
+                                             static, dtype):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = (torch.randn(xshape, generator=g) * 2).to(dtype).to(cuda)
+    w = (torch.randn(O, xshape[1], 3, 3, generator=g) * 0.05).to(cuda)
+    b = torch.randn(O, generator=g).to(cuda)
+    a = torch.tensor(0.03, device=cuda) if static else None
+    for bias, out_dtype in ((b, dtype), (None, torch.float32)):
+        reset_launch_counts()
+        out = int8_conv(x, w, bias, stride=stride, out_dtype=out_dtype,
+                        a_scale=a)
+        torch.cuda.synchronize()
+        assert launch_counts()["int8_conv"] == 1
+        ref = int8_conv_reference(x, w, bias, stride=stride,
+                                  out_dtype=out_dtype, a_scale=a)
+        assert out.dtype == out_dtype and out.shape == ref.shape
+        assert torch.equal(out, ref)
+
+
+def test_int8_unet_launches_each_gated_conv(cuda):
+    """The tiny UNet at quant_min_res 1 with resampling: 12 ResnetBlock
+    convs (2 down blocks, 4 up blocks; the mid blocks never), the
+    Downsample and the Upsample conv, one launch each.  quant_min_res 16:
+    the 16² level's 6 and both resampling convs (the Upsample gated after
+    its resize); 32: none."""
+    torch.manual_seed(0)
+    for qmr, want in ((1, 14), (16, 8), (32, 0)):
+        unet = SR3UNet(inner_channel=32, norm_groups=8,
+                       channel_mults=(1, 2), attn_res=(8,), res_blocks=1,
+                       image_size=16, dtype=torch.bfloat16,
+                       quant_min_res=qmr, quant_resample=True).to(cuda)
+        x = torch.randn(2, 6, 16, 16, device=cuda)
+        t = torch.rand(2, 1, device=cuda)
+        reset_launch_counts()
+        with torch.no_grad():
+            out = unet.eval()(x, t, quant=True)
+        torch.cuda.synchronize()
+        assert launch_counts()["int8_conv"] == want, qmr
+        assert torch.isfinite(out).all()

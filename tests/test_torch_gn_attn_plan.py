@@ -182,6 +182,9 @@ def test_gn_onepass_emulation_matches_pallas(shape, groups, cluster):
     (256, 1024, BF16, ("mma", 8)),  # two slices a CTA
     (64, 36, BF16, ("simt", 0)),    # C % 8 != 0
     (64, 512, F32, ("simt", 0)),    # no TF32
+    (257, 64, BF16, ("long", 0)),   # past the on-chip score rows
+    (1024, 512, BF16, ("long", 0)),  # 256² data at the default attn_res
+    (4096, 36, F32, ("long", 0)),
 ])
 def test_attn_plan(HW, C, dtype, want):
     p = attn_plan(HW, C, dtype)
@@ -250,4 +253,46 @@ def test_attn_cluster_emulation_matches_pallas(shape):
                            scale)
     got = _emulate_attn_cluster(*(torch.from_numpy(a) for a in (q, k, v)),
                                 scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+LONG_KEYS = 32  # keys per tile of attn_long_kernel
+
+
+def _emulate_attn_long(q, k, v, scale):
+    """attn_long_kernel's arithmetic in torch: pass 1 keeps each row's
+    running max m and sum l = Σ exp(s − m) over 32-key tiles, rescaling l
+    when m grows; pass 2 forms P = exp(s − m) / l per tile, rounds it to
+    v's type and adds P V in key order."""
+    B, HW, C = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((B, HW, 1), -float("inf"))
+    l = torch.zeros(B, HW, 1)
+    tiles = range(0, HW, LONG_KEYS)
+    for k0 in tiles:
+        s = qf @ kf[:, k0:k0 + LONG_KEYS].transpose(1, 2) * scale
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp(m - mn) + torch.exp(s - mn).sum(-1, keepdim=True)
+        m = mn
+    out = torch.zeros(B, HW, C)
+    for k0 in tiles:
+        s = qf @ kf[:, k0:k0 + LONG_KEYS].transpose(1, 2) * scale
+        p = (torch.exp(s - m) / l).to(v.dtype).float()
+        out = out + p @ vf[:, k0:k0 + LONG_KEYS]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("shape", [(1, 300, 40), (2, 257, 64)])
+def test_attn_long_emulation_matches_pallas(shape):
+    """The long path's two passes (online max and sum, then P rounded
+    after the division, as the TPU kernel rounds it) against the Pallas
+    kernel in interpret mode, fp32, its own tolerance (1e-5)."""
+    rng = np.random.RandomState(4)
+    q, k, v = (rng.randn(*shape).astype(np.float32) for _ in range(3))
+    scale = 1.0 / float(np.sqrt(shape[-1]))
+    with pltpu.force_tpu_interpret_mode():
+        ref = _attn_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           scale)
+    got = _emulate_attn_long(*(torch.from_numpy(a) for a in (q, k, v)),
+                             scale)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)

@@ -86,9 +86,10 @@ def test_val_step_matches_jax(jax_side, sampler):
     jmods = build_joint(cfg)
     cond = np.random.RandomState(8).uniform(-1, 1, (2, 16, 16, 3)) \
         .astype(np.float32)
+    shape = np.random.RandomState(10).randn(2, 16).astype(np.float32) * 0.3
     key = jax.random.PRNGKey(11)
-    ref = jax.jit(make_val_step())(jmods, state, {"SR": jnp.asarray(cond)},
-                                   key)
+    ref = jax.jit(make_val_step())(jmods, state, {
+        "SR": jnp.asarray(cond), "flame_shape": jnp.asarray(shape)}, key)
     ref = jax.tree.map(np.asarray, ref)
 
     tcfg = _tune(t_update(t_defaults(), CONFIG), sampler)
@@ -96,7 +97,8 @@ def test_val_step_matches_jax(jax_side, sampler):
     load_jax_params(tmods, tree)
     steps = (range(7, -1, -1) if sampler == "ddim"
              else range(tmods.sched_val.num_timesteps))
-    out = t_val_step()(tmods, {"SR": torch.from_numpy(cond)},
+    out = t_val_step()(tmods, {"SR": torch.from_numpy(cond),
+                               "flame_shape": torch.from_numpy(shape)},
                        noise=_replayed_noise(key, cond.shape, steps))
     out = {k: v.numpy() for k, v in out.items()}
 
@@ -107,26 +109,34 @@ def test_val_step_matches_jax(jax_side, sampler):
     d = np.abs(tensor_to_uint8(out["sr"]) - np.asarray(
         tensor_to_uint8(ref["sr"])))
     assert d.max() <= 1 and np.mean(d > 0) < 0.005
-    # The MICA outputs follow the uint8 image, identical but for such
+    # The MICA outputs (and l_mica, the masked vertex L1 against the
+    # batch's FLAME shapes) follow the uint8 image, identical but for such
     # ties; ArcFace and the mapping sum in other orders: 1e-4.
-    for k in ("identity", "verts", "lmk68"):
+    for k in ("identity", "verts", "lmk68", "l_mica"):
         np.testing.assert_allclose(out[k], ref[k], atol=1e-4, err_msg=k)
     np.testing.assert_allclose(out["img224"], ref["img224"],
                                atol=1.0 / 255 + 1e-6)
 
 
 def test_val_step_refuses_unported_sampler():
-    """ddpm, ddim and dpm++ are the samplers (dpm++:
-    tests/test_torch_model3.py); any other name raises, with or without
+    """Any val sampler name other than ddim and dpm++ runs the ancestral
+    loop, as the JAX package's ``make_val_step`` does: an unknown name
+    gives the ``ddpm`` step's outputs on the same noise, with or without
     the EMA."""
-    cfg = _tune(t_update(t_defaults(), CONFIG), "unipc")
-    mods = t_build(cfg, device="cpu")
-    with pytest.raises(ValueError, match="unipc"):
-        t_val_step()(mods, {"SR": torch.zeros(1, 16, 16, 3)},
-                     generator=torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="unipc"):
-        t_val_step(use_ema=True)(mods, {"SR": torch.zeros(1, 16, 16, 3)},
-                                 generator=torch.Generator().manual_seed(0))
+    cond = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, (1, 16, 16, 3)).astype(np.float32))
+    outs = {}
+    for sampler in ("unipc", "ddpm"):
+        mods = t_build(_tune(t_update(t_defaults(), CONFIG), sampler),
+                       device="cpu")
+        T = mods.sched_val.num_timesteps
+        noise = [torch.randn(1, 3, 16, 16, generator=torch.Generator()
+                             .manual_seed(i)) for i in range(T + 1)]
+        outs[sampler] = [step(mods, {"SR": cond}, noise=noise)
+                         for step in (t_val_step(), t_val_step(True))]
+    for got, want in zip(outs["unipc"], outs["ddpm"]):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
 
 
 def test_predictor_padding_and_empty_request(jax_side, tmp_path):
@@ -165,7 +175,15 @@ def test_predictor_padding_and_empty_request(jax_side, tmp_path):
         assert (tmp_path / "a" / f).exists(), f
 
 
-def test_from_config_refuses_unasked_random_weights():
+def test_from_config_refuses_unasked_random_weights(tmp_path):
+    """With no checkpoint, params or init_seed, ``from_config`` looks for
+    a checkpoint to resume, as the JAX package's does, and raises
+    FileNotFoundError where there is none; it never falls back to random
+    weights.  A checkpoint and explicit weights together are refused."""
     cfg = _tune(t_update(t_defaults(), CONFIG), "ddim")
-    with pytest.raises(ValueError):
+    cfg.output_dir = str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="no checkpoint found"):
         TorchPredictor.from_config(cfg, device="cpu")
+    with pytest.raises(ValueError):
+        TorchPredictor.from_config(cfg, str(tmp_path / "c.npz"),
+                                   init_seed=0, device="cpu")

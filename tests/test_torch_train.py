@@ -387,24 +387,34 @@ def test_scale_handoff_grad():
 
 
 def test_train_step_refuses_unported_paths():
-    """The int8 paths are not ported: the int8 hand-off raises in the train
-    and eval steps (for either variant), an int8 UNet when it is built."""
+    """The int8 hand-off (``train_handoff_int8``) refuses what the JAX
+    package refuses, with its ValueErrors: a flow-through (model3)
+    hand-off, in the train step, whatever quant_min_res; otherwise
+    quant_min_res 0, in the train and eval steps.  An int8 UNet config
+    builds."""
     b = {k: torch.from_numpy(v) for k, v in batch_of().items()}
+    gen = torch.Generator().manual_seed(0)
     for variant in ("model2", "model3"):
-        cfg = tiny_cfg(t_defaults())
-        cfg.model = variant
-        cfg.sr.model.diffusion.train_handoff_int8 = True
-        mods = tj.build_joint(cfg, device="cpu")
-        gen = torch.Generator().manual_seed(0)
-        with pytest.raises(NotImplementedError, match="int8"):
-            tj.make_train_step()(mods, tj.init_train_state(mods, cfg), b,
-                                 generator=gen)
-        with pytest.raises(NotImplementedError, match="int8"):
-            tj.make_eval_step()(mods, b, generator=gen)
-    cfg = tiny_cfg(t_defaults())
-    cfg.sr.model.unet.quant_min_res = 1
-    with pytest.raises(NotImplementedError, match="quant_min_res"):
-        tj.build_joint(cfg, device="cpu")
+        for qmr in (0, 1):
+            cfg = tiny_cfg(t_defaults())
+            cfg.model = variant
+            cfg.sr.model.diffusion.train_handoff_int8 = True
+            cfg.sr.model.unet.quant_min_res = qmr
+            mods = tj.build_joint(cfg, device="cpu")
+            assert mods.unet.quant_min_res == qmr
+            if variant == "model3":
+                with pytest.raises(ValueError, match="gradient-severed"):
+                    tj.make_train_step()(mods, tj.init_train_state(mods, cfg),
+                                         b, generator=gen)
+            if qmr == 0:
+                with pytest.raises(ValueError, match="quant_min_res is 0"):
+                    tj.make_eval_step()(mods, b, generator=gen)
+                if variant == "model2":
+                    with pytest.raises(ValueError,
+                                       match="quant_min_res is 0"):
+                        tj.make_train_step()(
+                            mods, tj.init_train_state(mods, cfg), b,
+                            generator=gen)
 
 
 def test_build_joint_fields_match_jax():

@@ -63,10 +63,27 @@ def test_unet_forward_matches_jax(unets):
     np.testing.assert_allclose(out, ref, atol=ATOL_UNET)
 
 
-def test_unet_rejects_int8_config():
-    with pytest.raises(NotImplementedError):
-        TorchUNet(inner_channel=16, norm_groups=8, channel_mults=(1, 2),
-                  quant_min_res=1)
+def test_unet_rejects_int8_config(unets):
+    """An int8 config (quant_min_res 1, resampling on) builds: the same
+    parameters as the fp UNet, so its weights load unchanged; ``quant``
+    is a call-time switch (False: the fp forward bit for bit; True: the
+    int8 convs engage).  The int8 forward against JAX:
+    tests/test_torch_quant.py."""
+    _, params, port = unets
+    q = TorchUNet(inner_channel=16, norm_groups=8, channel_mults=(1, 2),
+                  attn_res=(8,), res_blocks=1, image_size=16,
+                  dtype=torch.float32, quant_min_res=1,
+                  quant_resample=True)
+    q.load_state_dict(flax_to_state_dict(params))
+    q.eval()
+    assert (q.quant_min_res, q.quant_resample) == (1, True)
+    rng = np.random.RandomState(4)
+    x = nchw(rng.randn(1, 16, 16, 6))
+    t = torch.from_numpy(rng.rand(1, 1).astype(np.float32))
+    with torch.no_grad():
+        fp = port(x, t)
+        assert torch.equal(q(x, t), fp)
+        assert not torch.equal(q(x, t, quant=True), fp)
 
 
 @pytest.mark.parametrize("T,S", [(20, 8), (600, 25), (1000, 50), (7, 7)])
