@@ -19,11 +19,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    (GN: one pass over a cluster or stats + apply; attention: tensor cores
    over a cluster or CUDA cores; conv: tensor or CUDA cores, split K),
    bit-equal repeats of the cluster reductions, and the tensor-core
-   instructions in the built attention, conv and int8 conv libraries; the
-   int8 conv bit for bit at every distinct int8 conv of the serving CLI's
-   UNet forward (a meta-device trace, B = 8, bf16) and in fp32 at both
-   strides and scale kinds, timed against im2col + ``torch._int_mm`` and
-   cuDNN's bf16 conv; the GN+Swish and attention gradients against autograd
+   instructions in the built attention, conv and int8 conv libraries
+   (HGMMA, HMMA, IGMMA and IMMA); the int8 conv bit for bit at every
+   distinct int8 conv of the serving CLI's UNet forward (a meta-device
+   trace, B = 8, bf16; its tensor-core path, the plan printed), in fp32 at
+   both strides and scale kinds and at shapes of its first-version path,
+   timed on the cached path (weights quantized beforehand) and cold
+   against im2col + ``torch._int_mm`` and cuDNN's bf16 conv; the GN+Swish and attention gradients against autograd
    of their plain versions; then the whole serving step and one whole train
    step (model2, then model3 flow-through) on a tiny config, on the GPU
    against the plain versions on the CPU, and model3's gradients on the GPU
@@ -54,8 +56,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 9. the serving CLI, ``sr3d_torch.serve.main``, on the flagship config with
    that checkpoint over 11 synthetic 16² PNGs (DDIM-25, batch 8): the int8
    default (58 int8 convs a forward) and ``--int8 0``, every bundle
-   checked, the PSNR between them; then int8 and bf16 requests of 8 in
-   turns, three each, their median times.
+   checked, the PSNR between them; the kernels one UNet forward launches
+   in each mode (torch.profiler); then int8 and bf16 requests of 8 in
+   turns, three each, their median times, no weight quantized during
+   them.
 
 The line before the last lists the kernels as JSON (top-level numbers at
 the widest main-path shape in bf16, the shapes above under ``shapes``,
@@ -476,19 +480,19 @@ def main_path_int8_convs() -> list[tuple]:
     cfg.sr.model.unet.quant_resample = True
     calls: list = []
 
-    def record(x, weight, bias=None, *, stride=1, padding=1, out_dtype=None,
-               a_scale=None):
+    def record(x, wk, w_scale, bias=None, *, stride=1, padding=1,
+               out_dtype=None, a_scale=None):
         B, C, H, W = x.shape
-        calls.append((B, C, H, W, weight.shape[0], stride,
+        calls.append((B, C, H, W, wk.shape[0], stride,
                       "dynamic" if a_scale is None else "static"))
-        return x.new_empty(B, weight.shape[0], (H - 1) // stride + 1,
+        return x.new_empty(B, wk.shape[0], (H - 1) // stride + 1,
                            (W - 1) // stride + 1)
 
     saved = (unet_mod.gn_swish, unet_mod.spatial_attention,
-             quant_mod.int8_conv)
+             quant_mod.int8_conv_quantized)
     unet_mod.gn_swish = lambda x, *a, **k: x
     unet_mod.spatial_attention = lambda q, k, v, channels=None: q
-    quant_mod.int8_conv = record
+    quant_mod.int8_conv_quantized = record
     try:
         with torch.device("meta"), torch.no_grad():
             unet = unet_mod.unet_from_config(cfg.sr.model.unet,
@@ -497,29 +501,50 @@ def main_path_int8_convs() -> list[tuple]:
                              128), torch.zeros(8, 1), quant=True)
     finally:
         (unet_mod.gn_swish, unet_mod.spatial_attention,
-         quant_mod.int8_conv) = saved
+         quant_mod.int8_conv_quantized) = saved
     return calls
 
 
+# the int8 conv's first-version path (int8_plan's "mma"): ragged channel
+# counts, a W whose rows are no multiple of 16 bytes, fp32 in; (B, Cin, H,
+# W, O, stride, scale, dtype)
+INT8_FIRST_VERSION = ((8, 40, 64, 64, 24, 1, "static", torch.bfloat16),
+                      (2, 32, 16, 16, 32, 2, "dynamic", torch.bfloat16),
+                      (1, 64, 9, 13, 64, 1, "static", torch.bfloat16),
+                      (4, 96, 32, 32, 48, 1, "dynamic", torch.float32))
+
+
 def phase_int8_conv(dev) -> dict:
-    """The int8 conv kernel against its plain version, bit for bit, at
+    """The int8 conv kernels against their plain version, bit for bit, at
     every distinct int8 conv of the serving CLI's UNet forward (bf16 in
-    and out, B = 8), then at fp32 in and every (stride, scale) pair; each
-    shape timed against its plain version, the library route (im2col +
-    ``torch._int_mm``, the same function) and cuDNN's bf16 conv; IMMA
-    required in the built library.  Returns the kernel's record."""
+    and out, B = 8; int8_plan's tensor-core path), at fp32 in and every
+    (stride, scale) pair, and at shapes on the first-version path; each
+    shape's plan printed.  Each shape timed on the cached path (weights
+    quantized and packed beforehand, as ``Int8Conv`` keeps them: one
+    launch) and cold (``int8_conv``, the weights quantized first), against
+    its plain version, the library route (im2col + ``torch._int_mm`` on the
+    same quantized weights) and cuDNN's bf16 conv; IGMMA (s8 wgmma) and
+    IMMA (mma.sync s8) required in the built library.  Returns the
+    kernel's record."""
     import torch.nn.functional as F
 
     from sr3d_torch.kernels import int8_conv
     from sr3d_torch.kernels.int8_conv import (
         dynamic_scale,
+        int8_conv_quantized,
         int8_conv_reference,
+        int8_plan,
+        prepare_weight,
         quantize_weight,
     )
 
-    n_imma = sass_count("int8_conv", " IMMA.")
-    print(f"  int8_conv library: {n_imma} IMMA instructions in its SASS "
-          f"(cuobjdump -sass)")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_igmma, n_imma = (sass_count("int8_conv", op)
+                       for op in (" IGMMA.", " IMMA."))
+    print(f"  int8_conv library: {n_igmma} IGMMA (s8 wgmma) and {n_imma} "
+          f"IMMA (mma.sync s8) instructions in its SASS (cuobjdump -sass)")
+    require(n_igmma > 0, "the built int8 conv library has no IGMMA "
+                         "instruction")
     require(n_imma > 0, "the built int8 conv library has no IMMA "
                         "instruction")
     calls = main_path_int8_convs()
@@ -529,88 +554,119 @@ def phase_int8_conv(dev) -> dict:
           f"default (quant_min_res 1, resampling), {len(shapes)} distinct")
     extra = [(8, 64, 128, 128, 64, st, sc, torch.float32)
              for st in (1, 2) for sc in ("static", "dynamic")]
-    cases = [c + (torch.bfloat16,) for c in shapes] + extra
+    cases = ([c + (torch.bfloat16, "wgmma") for c in shapes]
+             + [c + ("wgmma",) for c in extra]
+             + [c + ("mma",) for c in INT8_FIRST_VERSION])
 
-    def library(x, w, b, stride, a):
-        """im2col + torch._int_mm: the library's int8 route."""
+    def library(x, wq, ws, b, stride, a):
+        """im2col + torch._int_mm: the library's int8 route, on weights
+        quantized beforehand."""
         B, C, H, W = x.shape
         xq = torch.round(x.float() / a).clamp_(-127, 127)
         cols = F.unfold(xq.to(torch.bfloat16), 3, padding=1, stride=stride)
         L = cols.shape[-1]
         cols = cols.transpose(1, 2).reshape(B * L, -1).to(torch.int8)
-        wq, ws = quantize_weight(w)
-        y = torch._int_mm(cols, wq.reshape(w.shape[0], -1).t())
+        y = torch._int_mm(cols, wq.reshape(wq.shape[0], -1).t())
         out = y.float() * (a * ws) + b
         Ho = (H - 1) // stride + 1
         return out.reshape(B, L, -1).transpose(1, 2).reshape(
             B, -1, Ho, L // Ho).to(torch.bfloat16)
 
     rec: dict = {}
-    for (B, C, H, W, O, stride, scale, dtype) in cases:
+    for (B, C, H, W, O, stride, scale, dtype, path) in cases:
         el = 2 if dtype == torch.bfloat16 else 4
+        plan = int8_plan(B, C, H, W, O, stride, sm_count, in_dtype=dtype)
+        require(plan.path == path, f"int8_plan takes {plan.path} at "
+                f"{(B, C, H, W)}->{O} stride {stride} {dtype}, want {path}: "
+                f"{plan.why}")
 
         def make(i, B=B, C=C, H=H, W=W, O=O, dtype=dtype):
             g = torch.Generator(device=dev).manual_seed(400 + i)
+            w = (torch.randn(O, C, 3, 3, generator=g, device=dev)
+                 * (9 * C) ** -0.5)
             return ((torch.randn(B, C, H, W, generator=g, device=dev) * 2)
-                    .to(dtype),
-                    torch.randn(O, C, 3, 3, generator=g, device=dev)
-                    * (9 * C) ** -0.5,
+                    .to(dtype), w,
                     torch.randn(O, generator=g, device=dev) * 0.1,
-                    torch.tensor(0.05, device=dev))
+                    torch.tensor(0.05, device=dev), *prepare_weight(w),
+                    quantize_weight(w)[0])
 
         a0, nxt = _rotating(make, B * C * H * W * el)
         st = scale == "static"
         kw = dict(stride=stride, out_dtype=dtype)
-        call = lambda a: int8_conv(a[0], a[1], a[2], a_scale=a[3] if st
+        call = lambda a: int8_conv_quantized(a[0], a[4], a[5], a[2],
+                                             a_scale=a[3] if st else None,
+                                             **kw)
+        cold = lambda a: int8_conv(a[0], a[1], a[2], a_scale=a[3] if st
                                    else None, **kw)
         call_plain = lambda a: int8_conv_reference(
             a[0], a[1], a[2], a_scale=a[3] if st else None, **kw)
-        out, ref = call(a0), call_plain(a0)
+        out, out_cold, ref = call(a0), cold(a0), call_plain(a0)
         torch.cuda.synchronize()
         e = float((out.float() - ref.float()).abs().max())
-        require(torch.equal(out, ref), f"int8_conv differs from its plain "
-                f"version at {(B, C, H, W)}->{O} stride {stride} {scale} "
-                f"{dtype}: max {e}")
+        require(torch.equal(out, ref) and torch.equal(out_cold, ref),
+                f"int8_conv differs from its plain version at "
+                f"{(B, C, H, W)}->{O} stride {stride} {scale} {dtype} "
+                f"({path}): max {e}")
+        require(torch.equal(call(a0), out), f"int8_conv repeats differ at "
+                f"{(B, C, H, W)}->{O} stride {stride} ({path})")
         Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
         ops = 2 * B * Ho * Wo * O * 9 * C
-        nbytes = (B * C * H * W + B * O * Ho * Wo) * el + (9 * C + 2) * O * 4
-        bd = bound(nbytes, ops, torch.int8)
+        io = (B * C * H * W + B * O * Ho * Wo) * el
+        # the cached call reads the int8 weights, their steps and the
+        # bias; the cold call the fp32 weights and the bias
+        bd = bound(io + 9 * C * O + 2 * O * 4, ops, torch.int8)
+        bd_cold = bound(io + (9 * C + 2) * O * 4, ops, torch.int8)
         t_k = device_ms(lambda: call(nxt()), reps=5)
+        t_cold = device_ms(lambda: cold(nxt()), reps=5)
         t_p = device_ms(lambda: call_plain(nxt()), reps=2)
         row = {"shape": [B, C, H, W, O], "stride": stride, "scale": scale,
-               "dtype": _dtype_name(dtype), "ms": t_k, "plain_ms": t_p,
-               "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None,
+               "dtype": _dtype_name(dtype), "path": plan.path,
+               "splits": plan.splits, "ms": t_k, "plain_ms": t_p,
+               "bound_ms": bd[0], "bound_by": bd[1], "cold_ms": t_cold,
+               "cold_bound_ms": bd_cold[0], "library_ms": None,
                "cudnn_bf16_ms": None}
-        if dtype == torch.bfloat16:
-            lib = lambda a: library(a[0], a[1], a[2], stride, a[3] if st
-                                    else dynamic_scale(a[0]))
+        # torch._int_mm takes sizes that are multiples of 8
+        if dtype == torch.bfloat16 and (B * Ho * Wo) % 8 == 0 and O % 8 == 0:
+            lib = lambda a: library(a[0], a[6], a[5], a[2], stride, a[3]
+                                    if st else dynamic_scale(a[0]))
             require(torch.equal(lib(a0), out),
                     f"im2col + _int_mm differs at {(B, C, H, W)}->{O}")
             row["library_ms"] = device_ms(lambda: lib(nxt()), reps=2)
+        if dtype == torch.bfloat16:
             row["cudnn_bf16_ms"] = device_ms(lambda: (lambda a: F.conv2d(
                 a[0], a[1].to(dtype), a[2].to(dtype), stride, 1))(nxt()),
                 reps=5)
+        tile = (f"{plan.images}x{plan.rows}x{plan.tile_w} px x {plan.bn}, "
+                f"{plan.ctas} CTAs"
+                if plan.path == "wgmma" else "64 x 64")
         print(f"  int8_conv {_dtype_name(dtype)} x={[B, C, H, W]}->{O} "
-              f"stride {stride} {scale} scale: bit-equal to plain; kernel "
-              f"{t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s) plain {t_p:.4f} "
-              f"im2col+_int_mm {row['library_ms'] or float('nan'):.4f} "
-              f"cuDNN bf16 conv {row['cudnn_bf16_ms'] or float('nan'):.4f} "
-              f"bound {bd[0]:.4f} ({bd[1]})")
+              f"stride {stride} {scale} scale: {plan.path} ({tile}, "
+              f"splits {plan.splits}), bit-equal to plain, cached and cold; "
+              f"kernel {t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s) cold "
+              f"{t_cold:.4f} plain {t_p:.4f} im2col+_int_mm "
+              f"{row['library_ms'] or float('nan'):.4f} cuDNN bf16 conv "
+              f"{row['cudnn_bf16_ms'] or float('nan'):.4f} bound "
+              f"{bd[0]:.4f} ({bd[1]}; cold {bd_cold[0]:.4f})")
         top = (dtype == torch.bfloat16 and (C, H, O, stride) ==
                (192, 128, 64, 1))
         _record(rec, "int8_conv", top, row)
         if top:
-            rec["int8_conv"]["cudnn_bf16_ms"] = row["cudnn_bf16_ms"]
-        del a0, nxt, out, ref
+            rec["int8_conv"].update(cudnn_bf16_ms=row["cudnn_bf16_ms"],
+                                    cold_ms=t_cold,
+                                    cold_bound_ms=bd_cold[0])
+        del a0, nxt, out, out_cold, ref
     # a forward's int8 convs: each shape's time times its count
     by_shape = {(*r["shape"][:4], r["shape"][4], r["stride"], r["scale"]): r
                 for r in rec["int8_conv"]["shapes"]
-                if r["dtype"] == "bfloat16"}
+                if r["dtype"] == "bfloat16" and r["path"] == "wgmma"}
     fwd = {k: sum(by_shape[c][k] for c in calls)
-           for k in ("ms", "cudnn_bf16_ms", "bound_ms")}
+           for k in ("ms", "cold_ms", "library_ms", "cudnn_bf16_ms",
+                     "bound_ms", "cold_bound_ms")}
     print(f"  int8_conv, the {len(calls)} convs of a forward: kernel "
-          f"{fwd['ms']:.3f} ms, cuDNN bf16 conv at the same shapes "
-          f"{fwd['cudnn_bf16_ms']:.3f} ms, bound {fwd['bound_ms']:.4f} ms")
+          f"{fwd['ms']:.3f} ms cached, {fwd['cold_ms']:.3f} ms cold; "
+          f"im2col+_int_mm {fwd['library_ms']:.3f} ms, cuDNN bf16 conv at "
+          f"the same shapes {fwd['cudnn_bf16_ms']:.3f} ms; bound "
+          f"{fwd['bound_ms']:.4f} ms ({fwd['cold_bound_ms']:.4f} cold)")
     rec["int8_conv"].update(max_abs_err=0.0, convs_per_forward=len(calls),
                             forward_ms=fwd)
     return rec
@@ -1402,20 +1458,23 @@ def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
 
 
-def phase_cli(dev, ckpt: Path, tmp: Path) -> dict:
+def phase_cli(dev, ckpt: Path, tmp: Path) -> tuple[dict, dict]:
     """The serving CLI as users run it: ``python -m sr3d_torch.serve``'s
     ``main`` on the flagship config with the checkpoint, over 11
     synthetic 16² LR PNGs, DDIM-25 at batch 8: at the int8 default (58
     int8 convs a forward) and with ``--int8 0``; every bundle checked, the
-    PSNR between the two runs' SR images; then int8 and bf16 requests of 8
-    in turns, three each, their medians.  Returns the kernel launches of
-    the int8 CLI run."""
+    PSNR between the two runs' SR images; then the kernels one UNet
+    forward launches in each mode, and int8 and bf16 requests of 8 in
+    turns, three each, their medians, with no weight quantized during
+    them.  Returns the wrappers' launches of the int8 CLI run and the
+    kernels of one forward per mode."""
     from PIL import Image
 
     from sr3d_torch.config import get_cfg_defaults, update_cfg
     from sr3d_torch.data.synthetic import synthetic_face_batch
     from sr3d_torch.kernels import launch_counts, reset_launch_counts
     from sr3d_torch.ops.image import tensor_to_uint8
+    from sr3d_torch.ops.quant import Int8Conv
     from sr3d_torch.serve import Predictor, apply_serving_flags, main
 
     lr_dir = tmp / "lr"
@@ -1475,10 +1534,34 @@ def phase_cli(dev, ckpt: Path, tmp: Path) -> dict:
     imgs = faces[:8]
     for p in preds.values():
         p.warmup()
+    # kernels a UNet forward launches (CUPTI, torch.profiler), the int8
+    # default beside bf16, with the quantized weights already kept
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    x = torch.randn(8, 6, 128, 128, device=dev)
+    t = torch.full((8, 1), 0.5, device=dev)
+    fwd_launches = {}
+    for mode in ("int8", "bf16"):
+        unet = preds[mode].modules.unet
+        with torch.no_grad():
+            unet(x, t, quant=mode == "int8")
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                unet(x, t, quant=mode == "int8")
+                torch.cuda.synchronize()
+        fwd_launches[mode] = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"    kernel launches of one UNet forward at batch 8: int8 "
+          f"{fwd_launches['int8']}, bf16 {fwd_launches['bf16']}")
+    quantizes = Int8Conv.weight_quantizes
     times: dict = {m: [] for m in preds}
     for _ in range(3):
         for mode in ("int8", "bf16"):
             times[mode].append(serve(preds[mode], imgs)[1])
+    require(Int8Conv.weight_quantizes == quantizes,
+            f"{Int8Conv.weight_quantizes - quantizes} weight quantizes "
+            f"during the int8 requests: the weights are kept per version")
     med = {m: float(np.median(t)) for m, t in times.items()}
     print(f"    requests of 8 in turns (int8, bf16) x 3: int8 "
           f"{[round(t * 1e3, 1) for t in times['int8']]} ms, median "
@@ -1486,8 +1569,9 @@ def phase_cli(dev, ckpt: Path, tmp: Path) -> dict:
           f"{[round(t * 1e3, 1) for t in times['bf16']]} ms, median "
           f"{8 / med['bf16']:.2f} faces/s; int8 / bf16 time "
           f"{med['int8'] / med['bf16']:.3f}")
+    print(f"    no weight quantized during the requests (Int8Conv's cache)")
     print(f"    {smi_line()}")
-    return runs["int8"][1]
+    return runs["int8"][1], fwd_launches
 
 
 def main() -> int:
@@ -1613,7 +1697,8 @@ def main() -> int:
     # 8-9. a trained checkpoint served, and the serving CLI
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ckpt = phase_checkpoints(dev, flame, Path(tmp), req_a)
-        cli_counts = phase_cli(dev, ckpt, Path(tmp))
+        cli_counts, fwd_launches = phase_cli(dev, ckpt, Path(tmp))
+    rec["int8_conv"]["forward_launches"] = fwd_launches
 
     kernels = []
     meta = {
@@ -1646,8 +1731,9 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "shapes": r["shapes"]})
-        for extra in ("main_path", "cudnn_bf16_ms", "convs_per_forward",
-                      "forward_ms"):
+        for extra in ("main_path", "cudnn_bf16_ms", "cold_ms",
+                      "cold_bound_ms", "convs_per_forward", "forward_ms",
+                      "forward_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(f"chip_smoke: every phase passed in "

@@ -12,44 +12,96 @@
 // with m = (b, ho, wo), k = (kh, kw, cin), stride 1 or 2, padding 1, and
 //   xq = clip(round_half_even(x / a_scale), -127, 127)   (x in bf16 or fp32)
 // quantized here, as each activation is loaded.  The weights arrive
-// quantized (the wrapper derives wq and w_scale from the fp32 weights with
-// torch ops, at every call as the JAX package does), laid out
-// [Cout][3][3][Cin rounded up to 32], zero past Cin.
+// quantized (the wrapper derives wq and w_scale from the fp32 weights, and
+// ops/quant.py::Int8Conv keeps them per weight version), laid out
+// [Cout][3][3][Cin rounded up to 32], zero past Cin: K-major.
 //
 // Bit for bit with the plain version (kernels/int8_conv.py):
-//   * the quantize is an IEEE division (__fdiv_rn, never a reciprocal or
-//     __fdividef) and __float2int_rn, which rounds half to even as
-//     torch.round and jnp.round do;
+//   * the quantize rounds the IEEE quotient x / a_scale (__fdiv_rn) half to
+//     even (__float2int_rn), as torch.round and jnp.round do; the
+//     tensor-core path takes the product with the reciprocal first, divides
+//     only where that product lies within 2^-12 of a half-integer, and
+//     rounds in the FP32 adder, which gives the same integers
+//     (quantize_fast);
 //   * the products are int8 x int8 -> int32 on the tensor cores, whose sums
 //     are exact whatever their order (|sum| < 127^2 * 9 Cin < 2^31; the
-//     wrapper refuses a Cin above that);
+//     wrapper refuses a Cin above that), K splits included;
 //   * the epilogue is int32 -> fp32 (__int2float_rn: the sums pass 2^24),
 //     then a_scale * w_scale[n], the product, the bias, each rounded on its
 //     own (__fmul_rn, __fadd_rn: nvcc would contract a*b + c into one FMA),
 //     then one rounding to the output type.
 //
-// What bounds it on an H100: at the widest serving input, [8, 192, 128,
-// 128] bf16 -> 64 channels, stride 1, it must read 50 MB and write 17 MB
-// (0.020 ms at 3.35 TB/s) and do 2.9e10 int8 operations (0.015 ms at 1979
-// TOPS): bytes.  The design is the simple one, right first:
-//   * one CTA of 4 warps per 64 output pixels x 64 output channels; the 64
-//     pixels are R rows x TW columns of one image (TW the largest power of
-//     two <= min(64, Wo)), so narrow deep levels still fill the tile;
-//   * for each chunk of 32 input channels the CTA loads the input patch its
-//     pixels need, ((R-1) s + 3) x ((TW-1) s + 3) pixels, each element read
-//     once a chunk and quantized on the way into shared memory (32 channels
-//     of a pixel contiguous, pixel rows padded to 48 or 40 bytes so that the
-//     fragment loads below hit 32 distinct banks), and the chunk's weights
-//     for all nine taps;
-//   * then nine k = 32 steps, one a tap, of mma.sync m16n8k32 s8 (IMMA)
-//     read straight from the patch: a warp owns 32 pixels x 32 channels;
-//   * the epilogue writes NCHW in the output type.
-// No pipelining, no wgmma, no TMA: those, and the quantize fused into the
-// GroupNorm+Swish that feeds most of these convs, are later work.
+// What bounds it on an H100: bytes.  At the widest serving input, [8, 192,
+// 128, 128] bf16 -> 64 channels, stride 1, it must read 50 MB and write
+// 17 MB (0.020 ms at 3.35 TB/s) and do 2.9e10 int8 operations (0.015 ms at
+// 1979 TOPS).  At the deep levels (16^2 and 8^2, M = B*Ho*Wo = 2048 or 512,
+// K = 9 Cin up to 9216) the output tiles are too few to fill 132 SMs.
+// What holds this kernel back is neither: it is quantizing the activations
+// inside the conv, ~10 FP32/integer operations an element on the CUDA
+// cores, each element of a tile's band once (1.3-1.6 times the input, the
+// halo).  PERF.md has the numbers; the quantize fused into the GroupNorm
+// that feeds most of these convs is the way past it.
+//
+// Two kernels; the wrapper's plan (int8_plan in int8_conv.py) picks one by
+// shape, never by failure:
+//
+// int8_conv3x3_wgmma_kernel<Tin, Tout, BN, MW>: Cin % 64 == 0, O % 64 ==
+//   0, a row of x a multiple of 16 bytes (all 27 distinct int8 convs of the
+//   flagship UNet).  One CTA of 512 threads per (tile, K split).
+//   * Tiles: BN = 128 output channels (64 where O % 128 != 0) by 128 * MW
+//     output pixels (MW = 2 at BN = 64, stride 1): IMGS images x R rows x
+//     TW columns, TW a power of two chosen for the fewest band pixels a
+//     tile pixel (16 x 16 at 128^2, whole 8 x 8 images at the deepest
+//     level).  K is walked in 64-channel chunks, each chunk tap by tap.
+//   * Band loads by TMA (warp 6): per chunk, x as it lies (NCHW) arrives as
+//     4-D boxes over (W, H, C, B), KS channels deep, RS of them in flight:
+//     the tile's input rows and columns plus their halo, (R-1)s+3 rows at
+//     stride s; TMA writes zeros where the box leaves the tensor, which is
+//     the padding.  A box starts on a 16-byte boundary of W (a misaligned
+//     start is an illegal instruction), so it begins up to 16 bytes left
+//     of the halo and the taps' offsets shift by as much.
+//   * Quantize once and transpose, on 14 warps: the six quantize warps and
+//     the eight product warps (before each chunk's products) share each
+//     stage, 7 : 9.  A unit is two pixels by 8 channels: read channel-major
+//     from shared memory, quantized branch-free (quantize_fast), written
+//     pixel-major, 64 int8 channels a pixel (80-byte rows: the 8 rows of an
+//     ldmatrix fall on distinct banks), the K-major layout 8-bit wgmma
+//     takes.  Only the columns some tap reads are quantized.  Two quantized
+//     bands, so the quantize warps run a chunk ahead of the products.
+//   * Products (warps 8-15, two warpgroups of 64 * MW rows):
+//     wgmma.mma_async m64nBNk32 .s32.s8.s8, two k-steps a tap.  The nine
+//     taps are row and column offsets into one band; ldmatrix.x4 at each
+//     lane's shifted pixel row gives the register-A fragment.  B, the
+//     packed weights, arrives through a TMA ring of 4 [BN x 64] stages
+//     (warp 7; 64-byte swizzle), each released by an "empty" mbarrier.
+//   * Split K over a cluster: with fewer tiles than SMs the plan splits the
+//     chunks over the CTAs of a thread-block cluster (up to 8).  After the
+//     main loop every CTA writes its int32 partial tile into its own shared
+//     memory; after a cluster barrier, rank r sums its share of the tile
+//     over all ranks' partials through distributed shared memory, in int32,
+//     and dequantizes once.  One launch, no workspace, no atomics.
+//   * Epilogue: the same pass stores 8 outputs along W a thread (16 bytes
+//     in bf16), NCHW.
+//   * Not persistent and no setmaxnreg: a persistent grid that overlaps a
+//     tile's epilogue with the next tile gains nothing while the quantize
+//     bounds the kernel.
 
+// int8_conv3x3_kernel<Tin, Tout> (the first version, mma.sync m16n8k32 s8,
+//   IMMA): every other shape (ragged channel counts, the tiny test UNets).
+//   One CTA of 4 warps per 64 output pixels x 64 output channels; for each
+//   chunk of 32 input channels it loads the input patch its pixels need,
+//   each element read once a chunk and quantized on the way into shared
+//   memory, and the chunk's weights for all nine taps; then nine k = 32
+//   steps, one a tap, of mma.sync read straight from the patch; the
+//   epilogue writes NCHW.
+
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums only: no libcuda symbol
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -268,6 +320,765 @@ int launch(const void* x, const void* wq, const void* a_scale,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Tensor-core path: s8 wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+// Roles by warp: 0-5 quantize the bands, 6 loads the raw bands, 7 loads
+// the weight tiles (one lane each), 8-15 (two warpgroups) run the products.
+constexpr int kTcThreads = 512;
+constexpr int kXformThreads = 192;   // warps 0-5
+constexpr int kQuantThreads = 448;   // and the product warps: all quantize
+constexpr int kXformShare = 7;       // sixteenths of the quantize, warps 0-5
+constexpr int kRawWarp = 6;
+constexpr int kWeightWarp = 7;
+constexpr int kConsumerWarps = 8;
+constexpr int kStages = 4;   // TMA ring of weight tiles, one tap each
+constexpr int kChunk = 64;   // input channels per K chunk: 64-byte rows
+constexpr int kPix = 80;     // bytes per pixel of a quantized band
+constexpr int kSmemLimit = 232448;
+constexpr int kMaxRawStages = 8;
+
+// The tile and band geometry of one launch (int8_plan in int8_conv.py).
+struct TcShape {
+  int B, Cin, H, W, O, Ho, Wo, stride;
+  int TW, R, IMGS, BR, BWp, KS, splits;
+  int raw_stages;  // the ring of raw band stages, 2 to kMaxRawStages
+  int n_tiles, tiles_w, tiles_h;
+  int q_bytes, raw_bytes, pipe_bytes;
+};
+
+__host__ __device__ constexpr int align_up(int n, int a) {
+  return (n + a - 1) / a * a;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Spins until the phase of parity `parity` has completed; a wait that
+// never ends (a bug, not a slow copy) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0, spins = 0;
+  do {
+    if (++spins == (1u << 30)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One raw band stage: box {BWp columns, BR rows, KS channels, IMGS images}
+// of x at (w, h, c, b); TMA writes zeros where the box leaves the tensor,
+// which is the conv's padding (quantize(0) = 0).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int w, int h,
+                                            int c, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(w),
+      "r"(h), "r"(c), "r"(b)
+      : "memory");
+}
+
+// One weight tile: 64 bytes of K (one tap of a chunk) by BN rows of the
+// [O][9 Cin] int8 matrix, 64-byte swizzle.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int k, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k),
+      "r"(n)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major B tile with 64-byte rows and the 64-byte
+// swizzle TMA wrote: groups of 8 rows 512 bytes apart (stride byte
+// offset); the leading byte offset is unused for swizzled K-major tiles.
+__device__ __forceinline__ uint64_t sw64_k_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((512ull >> 4) << 32) |
+         (2ull << 62);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Every thread of the CTA has left its role's main loop (barrier 2,
+// reached from each role's own code).
+__device__ __forceinline__ void all_roles_done() {
+  asm volatile("barrier.sync 2, %0;\n" ::"n"(kTcThreads) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads across the asynchronous
+// products.
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D (64 x 64, s32) += A (64 x 32 s8, registers) * B (32 x 64 s8, K-major
+// in shared memory).
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 128, s32) += A (64 x 32) * B (32 x 128), as above.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// 1.5 * 2^23: adding it to |y| < 2^22 rounds y to an integer, half to even,
+// in the FP32 adder (the conversion unit runs at an eighth of its rate),
+// and leaves that integer in the low mantissa bits.
+constexpr float kRound = 12582912.f;
+
+// The quantize, bit for bit as quantize() above: y = v * fl(1/a) is within
+// 3 ulp-of-128 (< 2.3e-5) of the true quotient wherever |v/a| <= 128, so
+// its rounding is the true division's unless y lies within 2^-12 of a
+// half-integer, which sets bit `bit` of `tie` (quantize_exact then
+// decides).  t = y + kRound holds rint(y) in its low bits for |y| < 2^22,
+// and clipping that integer to +-127 gives the same bytes as clipping y
+// for every y (a larger |y| lands past the clip on its side).  Returns the
+// int8 in the low byte.
+__device__ __forceinline__ uint32_t quantize_fast(float v, float r,
+                                                  uint32_t& tie, int bit) {
+  const float y = __fmul_rn(v, r);
+  const float t = __fadd_rn(y, kRound);
+  const float f = __fsub_rn(y, __fsub_rn(t, kRound));  // y - rint(y)
+  tie |= (uint32_t)(fabsf(f) > 0.5f - 0x1p-12f) << bit;
+  const int q = __float_as_int(t) - __float_as_int(kRound);
+  return static_cast<uint32_t>(min(max(q, -127), 127)) & 0xffu;
+}
+
+__device__ __forceinline__ uint32_t quantize_exact(float v, float a) {
+  const float y = fminf(fmaxf(__fdiv_rn(v, a), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(y, kRound)) & 0xffu;
+}
+
+template <typename T>
+__device__ __forceinline__ float2 load_pair(const T* p);
+template <>
+__device__ __forceinline__ float2 load_pair<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <>
+__device__ __forceinline__ float2 load_pair<__nv_bfloat16>(
+    const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// x / d for 0 <= x < 2^16 and 2 <= d < 2^16 by a multiply-high with
+// ceil(2^32 / d), exact in that range (the error x (m d - 2^32) / 2^32 d
+// stays below 1/d): the quantize's index arithmetic, at every unit.
+struct FastDiv {
+  uint32_t m;
+  __device__ explicit FastDiv(int d) : m(0xffffffffu / (uint32_t)d + 1u) {}
+  __device__ int operator()(int x) const {
+    return (int)__umulhi((uint32_t)x, m);
+  }
+};
+
+// One raw stage (KS channels of the band, channel-major as TMA wrote it)
+// into the pixel-major int8 band, shared by the six quantize warps (the
+// first kXformShare sixteenths of the units) and the eight product warps
+// (the rest): thread `vt` of the `n` of its group.  A unit is
+// two neighbouring pixels by 8 channels: all 16 elements are loaded, then
+// quantized without a branch, each once, then the rare ties fixed, then 8
+// bytes a pixel written at channel group `group0 + g`.  Only the columns
+// some tap reads, [col0, col0 + cols) of each band row, are quantized: the
+// rest is the 16-byte alignment of the box.
+template <typename Tin>
+__device__ __forceinline__ void quantize_stage(const Tin* __restrict__ raw,
+                                               uint8_t* qb, int vt, int n,
+                                               bool xform, int plane,
+                                               int BWp, int band_rows,
+                                               int col0, int cols,
+                                               int groups, int group0, int KS,
+                                               float a, float r) {
+  const int p_lo = col0 >> 1, p_row = ((col0 + cols + 1) >> 1) - p_lo;
+  const int pairs = band_rows * p_row, units = pairs * groups;
+  const int split = units * kXformShare / 16;
+  const FastDiv by_pairs(pairs), by_p_row(p_row), by_br(plane / BWp);
+  for (int u = (xform ? 0 : split) + vt; u < (xform ? split : units);
+       u += n) {
+    const int g = by_pairs(u), pr = u - g * pairs;
+    const int row = by_p_row(pr);
+    const int px = row * BWp + 2 * (p_lo + pr - row * p_row);
+    const int img = by_br(row), rem = px - img * plane;
+    const Tin* src = raw + (int64_t)(img * KS + 8 * g) * plane + rem;
+    float2 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = load_pair<Tin>(src + e * plane);
+    uint32_t lo[2] = {0u, 0u}, hi[2] = {0u, 0u}, tie = 0u;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      lo[e >> 2] |= quantize_fast(v[e].x, r, tie, 2 * e) << (8 * (e & 3));
+      hi[e >> 2] |= quantize_fast(v[e].y, r, tie, 2 * e + 1) << (8 * (e & 3));
+    }
+    if (tie) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (tie & (3u << (2 * e))) {
+          const int sh = 8 * (e & 3);
+          lo[e >> 2] = (lo[e >> 2] & ~(0xffu << sh)) |
+                       (quantize_exact(v[e].x, a) << sh);
+          hi[e >> 2] = (hi[e >> 2] & ~(0xffu << sh)) |
+                       (quantize_exact(v[e].y, a) << sh);
+        }
+    }
+    const int off = (group0 + g) * 8;
+    *reinterpret_cast<uint2*>(qb + px * kPix + off) = make_uint2(lo[0], lo[1]);
+    *reinterpret_cast<uint2*>(qb + (px + 1) * kPix + off) =
+        make_uint2(hi[0], hi[1]);
+  }
+}
+
+// Every raw stage of one chunk into its quantized band (see quantize_stage);
+// `raw_use` counts the raw stages this thread has taken.
+template <typename Tin>
+__device__ __forceinline__ void quantize_chunk(const TcShape& s,
+                                               const uint8_t* raws,
+                                               uint64_t* raw_full,
+                                               uint64_t* raw_empty,
+                                               uint8_t* qb, int vt, int n,
+                                               bool xform, int& raw_use,
+                                               int shift0, float a, float r) {
+  const int groups = s.KS / 8;
+  for (int sub = 0; sub < kChunk / s.KS; ++sub, ++raw_use) {
+    const int rs = raw_use % s.raw_stages;
+    mbar_wait(&raw_full[rs], (raw_use / s.raw_stages) & 1);
+    quantize_stage<Tin>(reinterpret_cast<const Tin*>(raws + rs * s.raw_bytes),
+                        qb, vt, n, xform, s.BR * s.BWp, s.BWp,
+                        s.IMGS * s.BR, shift0,
+                        (s.TW - 1) * s.stride + 3, groups, sub * groups, s.KS,
+                        a, r);
+    mbar_arrive(&raw_empty[rs]);
+  }
+}
+
+// A fragments of one tap: for each 64-row product mi and k-step ks (32
+// channels), the ldmatrix.x4 at this lane's shifted band pixel.
+template <int MW>
+__device__ __forceinline__ void load_a(uint32_t (&a)[MW][2][4], uint32_t qb,
+                                       const int (&centre)[MW], int shift,
+                                       int khalf) {
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi) {
+    int bp = centre[mi] + shift;
+    asm volatile("" : "+r"(bp));
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      ldmatrix_x4(a[mi][ks], qb + bp * kPix + ks * 32 + khalf * 16);
+  }
+}
+
+// Tile pixel `pix` -> its output (b, ho, wo); false outside the output.
+__device__ __forceinline__ bool out_pixel(const TcShape& s, int pix, int b0,
+                                          int h0, int w0, int& b, int& ho,
+                                          int& wo) {
+  const int per = s.R * s.TW, i = pix / per, rem = pix - i * per;
+  b = b0 + i;
+  ho = h0 + rem / s.TW;
+  wo = w0 + rem % s.TW;
+  return i < s.IMGS && b < s.B && ho < s.Ho && wo < s.Wo;
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* dst, const float (&v)[8]);
+template <>
+__device__ __forceinline__ void store8<float>(float* dst,
+                                              const float (&v)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+template <>
+__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                      const float (&v)[8]) {
+  __nv_bfloat162 h[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    h[e] = __halves2bfloat162(__float2bfloat16_rn(v[2 * e]),
+                              __float2bfloat16_rn(v[2 * e + 1]));
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<uint4*>(h);
+}
+
+// The tile a CTA works on, decoded from its index (output channels fastest,
+// so neighbouring CTAs share a band through L2), with the band's origin:
+// the box starts at input column wb, on a 16-byte boundary, and the tile's
+// first needed column sits `shift0` columns in.
+struct Tile {
+  int n0, w0, h0, b0, wb, shift0;
+};
+
+template <typename Tin, int BN>
+__device__ __forceinline__ Tile decode_tile(const TcShape& s, int t) {
+  constexpr int kAlignW = 16 / (int)sizeof(Tin);
+  Tile k;
+  k.n0 = (t % s.n_tiles) * BN;
+  t /= s.n_tiles;
+  k.w0 = (t % s.tiles_w) * s.TW;
+  t /= s.tiles_w;
+  k.h0 = (t % s.tiles_h) * s.R;
+  k.b0 = (t / s.tiles_h) * s.IMGS;
+  const int wneed = k.w0 * s.stride - 1;
+  k.wb = wneed >= 0 ? wneed / kAlignW * kAlignW : -kAlignW;
+  k.shift0 = wneed - k.wb;
+  return k;
+}
+
+// One CTA per (tile, K split); the splits of a tile form one cluster.
+// Shared memory: the weight ring, two quantized bands, the raw stages
+// (after the main loop: the int32 partial tile), then the barriers.
+template <typename Tin, typename Tout, int BN, int MW>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    int8_conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                              const __grid_constant__ CUtensorMap wmap,
+                              const float* __restrict__ a_scale_p,
+                              const float* __restrict__ w_scale,
+                              const float* __restrict__ bias,
+                              Tout* __restrict__ out, const TcShape s) {
+  constexpr int BM = 128 * MW;
+  constexpr int LDP = BM + 4;  // partial tile row: 8 q x 8 g on 32 banks
+  constexpr int NA = MW == 1 ? 2 : 1;  // taps of A fragments in flight
+  // aligned by pointer arithmetic on the shared array, not through an
+  // integer, so the compiler keeps the address space: shared loads and
+  // stores (LDS / STS), not generic ones
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* sW = smem;
+  uint8_t* qbands = sW + kStages * BN * 64;
+  uint8_t* raws = qbands + 2 * s.q_bytes;
+  int32_t* part = reinterpret_cast<int32_t*>(smem);
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(smem + s.pipe_bytes);
+  uint64_t* w_empty = w_full + kStages;
+  uint64_t* raw_full = w_empty + kStages;
+  uint64_t* raw_empty = raw_full + kMaxRawStages;
+  uint64_t* q_full = raw_empty + kMaxRawStages;
+  uint64_t* q_empty = q_full + 2;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank();
+  const Tile k = decode_tile<Tin, BN>(s, blockIdx.x / s.splits);
+  const int chunks = s.Cin / kChunk;
+  const int c_lo = split * chunks / s.splits;
+  const int c_hi = (split + 1) * chunks / s.splits;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&w_full[i], 1);
+      mbar_init(&w_empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < s.raw_stages; ++i) {
+      mbar_init(&raw_full[i], 1);
+      mbar_init(&raw_empty[i], kQuantThreads);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], kQuantThreads);
+      mbar_init(&q_empty[i], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // A ring slot or band buffer is used for the u-th time with parity
+  // (u / depth) & 1; a producer's first wait on "empty" passes at once.
+  if (warp == kRawWarp) {
+    if (lane == 0) {
+      const uint32_t tx = (uint32_t)s.IMGS * s.BR * s.BWp * s.KS *
+                          (uint32_t)sizeof(Tin);
+      int use = 0;
+      for (int c = c_lo; c < c_hi; ++c)
+        for (int sub = 0; sub < kChunk / s.KS; ++sub, ++use) {
+          const int rs = use % s.raw_stages;
+          mbar_wait(&raw_empty[rs], ((use / s.raw_stages) & 1) ^ 1);
+          mbar_expect(&raw_full[rs], tx);
+          tma_load_4d(raws + rs * s.raw_bytes, &xmap, &raw_full[rs], k.wb,
+                      k.h0 * s.stride - 1, c * kChunk + sub * s.KS, k.b0);
+        }
+    }
+    __syncwarp();
+    all_roles_done();
+  } else if (warp == kWeightWarp) {
+    if (lane == 0) {
+      int use = 0;
+      for (int c = c_lo; c < c_hi; ++c)
+        for (int tap = 0; tap < 9; ++tap, ++use) {
+          const int slot = use % kStages;
+          mbar_wait(&w_empty[slot], ((use / kStages) & 1) ^ 1);
+          mbar_expect(&w_full[slot], BN * 64);
+          tma_load_2d(sW + slot * BN * 64, &wmap, &w_full[slot],
+                      tap * s.Cin + c * kChunk, k.n0);
+        }
+    }
+    __syncwarp();
+    all_roles_done();
+  } else if (warp < kRawWarp) {
+    const float a = *a_scale_p, r = __frcp_rn(a);
+    int raw_use = 0;
+    for (int c = c_lo; c < c_hi; ++c) {
+      const int qs = (c - c_lo) & 1, qu = (c - c_lo) >> 1;
+      mbar_wait(&q_empty[qs], (qu & 1) ^ 1);
+      quantize_chunk<Tin>(s, raws, raw_full, raw_empty,
+                          qbands + qs * s.q_bytes, tid, kXformThreads, true,
+                          raw_use, k.shift0, a, r);
+      mbar_arrive(&q_full[qs]);
+    }
+    all_roles_done();
+  } else {
+    // Consumers.  This lane's A rows (ldmatrix.x4: lanes 0-7 / 8-15 / 16-23
+    // / 24-31 give rows 0-7 / 8-15 / 0-7 / 8-15 of the warp's 16, bytes +0
+    // / +0 / +16 / +16 of a k-step) and their band pixels at tap (0, 0).
+    const int cw = warp - 8, wg = cw >> 2, khalf = lane >> 4;
+    int centre[MW];
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi) {
+      const int p = wg * 64 * MW + mi * 64 + (cw & 3) * 16 + (lane & 7) +
+                    ((lane >> 3) & 1) * 8;
+      const int per = s.R * s.TW, i = p / per, rem = p - i * per;
+      centre[mi] = i < s.IMGS
+                       ? (i * s.BR + (rem / s.TW) * s.stride) * s.BWp +
+                             (rem % s.TW) * s.stride + k.shift0
+                       : 0;  // outside the tile: any band pixel
+    }
+    const float a = *a_scale_p, r = __frcp_rn(a);
+    int acc[MW][BN / 2];  // the int32 sums
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mi][i] = 0;
+    int w_use = 0, raw_use = 0;
+    for (int c = c_lo; c < c_hi; ++c) {
+      const int qs = (c - c_lo) & 1, qu = (c - c_lo) >> 1;
+      // the product warps' share of the chunk's quantize first: the band's
+      // buffer is free, since every product warp arrived on the previous
+      // chunk's q_full after its products of the chunk before
+      quantize_chunk<Tin>(s, raws, raw_full, raw_empty,
+                          qbands + qs * s.q_bytes, tid - kConsumerWarps * 32,
+                          kConsumerWarps * 32, false, raw_use, k.shift0, a,
+                          r);
+      mbar_arrive(&q_full[qs]);
+      mbar_wait(&q_full[qs], qu & 1);
+      const uint32_t qb = smem_u32(qbands + qs * s.q_bytes);
+      // With two fragment buffers, tap t's products run while tap t+1's
+      // fragments load, and the stage of tap t-1 is released once its
+      // group is done; with one (two m64 products, whose registers the
+      // quantize needs), tap t is waited for first.
+      uint32_t af[NA][MW][2][4];
+      load_a<MW>(af[0], qb, centre, 0, khalf);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap, ++w_use) {
+        const int slot = w_use % kStages;
+        mbar_wait(&w_full[slot], (w_use / kStages) & 1);
+        const uint64_t desc = sw64_k_desc(sW + slot * BN * 64);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+          for (int mi = 0; mi < MW; ++mi) {
+            // k-step ks starts 32 bytes further along the rows
+            if constexpr (BN == 128)
+              wgmma_s8_n128(acc[mi], af[tap % NA][mi][ks], desc + 2 * ks);
+            else
+              wgmma_s8_n64(acc[mi], af[tap % NA][mi][ks], desc + 2 * ks);
+          }
+        wgmma_commit();
+        wgmma_wait<NA - 1>();
+#pragma unroll
+        for (int mi = 0; mi < MW; ++mi) fence_acc(acc[mi]);
+        if (tap + 1 >= NA && lane == 0)
+          mbar_arrive(&w_empty[(w_use + 1 - NA) % kStages]);
+        if (tap < 8)
+          load_a<MW>(af[(tap + 1) % NA], qb, centre,
+                     ((tap + 1) / 3) * s.BWp + (tap + 1) % 3, khalf);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mi = 0; mi < MW; ++mi) fence_acc(acc[mi]);
+      if (lane == 0) {
+        if (NA == 2) mbar_arrive(&w_empty[(w_use - 1) % kStages]);
+        mbar_arrive(&q_empty[qs]);
+      }
+    }
+    // every load has landed and been read: the pipeline's shared memory
+    // now holds this split's int32 partial tile, [BN][LDP], pixels
+    // contiguous
+    all_roles_done();
+    const int q = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int pix = wg * 64 * MW + mi * 64 + (cw & 3) * 16 +
+                        (lane >> 2) + 8 * half;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            part[(8 * j + 2 * q + e) * LDP + pix] =
+                acc[mi][4 * j + 2 * half + e];
+      }
+  }
+  cluster.sync();  // every split's partial tile is written
+
+  // Rank `split` finishes its share of the tile's (channel, 8 pixels)
+  // units: the splits' int32 partials summed (exact, in any order), one
+  // dequant in JAX's order, 8 outputs along W a thread.
+  const float a = *a_scale_p;
+  const int G = BM / 8, units = BN * G;
+  const int lo = split * units / s.splits, hi = (split + 1) * units / s.splits;
+  const int64_t oplane = (int64_t)s.Ho * s.Wo;
+  for (int u = lo + tid; u < hi; u += kTcThreads) {
+    const int n = u / G, g = u - n * G;
+    int sum[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    for (int rk = 0; rk < s.splits; ++rk) {
+      const int4* src = reinterpret_cast<const int4*>(
+          (s.splits == 1 ? part : cluster.map_shared_rank(part, rk)) +
+          n * LDP + 8 * g);
+      const int4 v0 = src[0], v1 = src[1];
+      sum[0] += v0.x;
+      sum[1] += v0.y;
+      sum[2] += v0.z;
+      sum[3] += v0.w;
+      sum[4] += v1.x;
+      sum[5] += v1.y;
+      sum[6] += v1.z;
+      sum[7] += v1.w;
+    }
+    const int nn = k.n0 + n;
+    const float sc = __fmul_rn(a, w_scale[nn]);
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] = __fmul_rn(__int2float_rn(sum[e]), sc);
+      if (bias != nullptr) v[e] = __fadd_rn(v[e], bias[nn]);
+    }
+    int b, ho, wo;
+    Tout* plane_n = out + (int64_t)nn * oplane;
+    if (s.TW % 8 == 0 && s.Wo % 8 == 0 &&
+        out_pixel(s, 8 * g, k.b0, k.h0, k.w0, b, ho, wo) && wo + 7 < s.Wo) {
+      store8<Tout>(plane_n + (int64_t)b * s.O * oplane + (int64_t)ho * s.Wo +
+                       wo,
+                   v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (out_pixel(s, 8 * g + e, k.b0, k.h0, k.w0, b, ho, wo))
+          plane_n[(int64_t)b * s.O * oplane + (int64_t)ho * s.Wo + wo] =
+              from_f<Tout>(v[e]);
+    }
+  }
+  cluster.sync();  // no CTA leaves while another reads its partials
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a tensor of `rank` dims (innermost first) with `el`-byte
+// elements, packed, read in boxes `box`.
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int el,
+                const void* base, int rank, const cuuint64_t* dims,
+                const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  cuuint64_t strides[3];
+  cuuint64_t st = el;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = st *= dims[i];
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int tc_smem(int BN, int MW, int npix, int KS, int RS, int el, int* q_bytes,
+            int* raw_bytes, int* pipe_bytes) {
+  *q_bytes = align_up(npix * kPix, 1024);
+  *raw_bytes = align_up(npix * KS * el, 1024);
+  const int pipe = kStages * BN * 64 + 2 * *q_bytes + RS * *raw_bytes;
+  const int part = BN * (128 * MW + 4) * 4;  // after the main loop
+  *pipe_bytes = align_up(pipe > part ? pipe : part, 8);
+  return 1024 + *pipe_bytes + (2 * kStages + 2 * kMaxRawStages + 4) * 8;
+}
+
+template <typename Tin, typename Tout, int BN, int MW>
+int launch_tc(const void* x, const void* wq, const void* a_scale,
+              const void* w_scale, const void* bias, void* out, TcShape s,
+              int blocks, cudaStream_t stream) {
+  auto kernel = int8_conv3x3_wgmma_kernel<Tin, Tout, BN, MW>;
+  constexpr int el = sizeof(Tin);
+  const int npix = s.IMGS * s.BR * s.BWp;
+  const int smem =
+      tc_smem(BN, MW, npix, s.KS, s.raw_stages, el, &s.q_bytes, &s.raw_bytes,
+              &s.pipe_bytes);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)s.W, (cuuint64_t)s.H,
+                               (cuuint64_t)s.Cin, (cuuint64_t)s.B};
+  const cuuint32_t xbox[4] = {(cuuint32_t)s.BWp, (cuuint32_t)s.BR,
+                              (cuuint32_t)s.KS, (cuuint32_t)s.IMGS};
+  const cuuint64_t wdims[2] = {(cuuint64_t)9 * s.Cin, (cuuint64_t)s.O};
+  const cuuint32_t wbox[2] = {64, BN};
+  if (!encode_map(&xmap,
+                  el == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  el, x, 4, xdims, xbox, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wq, 2, wdims, wbox,
+                  CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorNotSupported;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)s.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, xmap, wmap, static_cast<const float*>(a_scale),
+      static_cast<const float*>(w_scale), static_cast<const float*>(bias),
+      static_cast<Tout*>(out), s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename Tin, typename Tout>
+int launch_tc_tile(const void* x, const void* wq, const void* a_scale,
+                   const void* w_scale, const void* bias, void* out,
+                   const TcShape& s, int BN, int MW, int blocks,
+                   cudaStream_t stream) {
+  if (BN == 128)
+    return launch_tc<Tin, Tout, 128, 1>(x, wq, a_scale, w_scale, bias, out, s,
+                                        blocks, stream);
+  if (MW == 2)
+    return launch_tc<Tin, Tout, 64, 2>(x, wq, a_scale, w_scale, bias, out, s,
+                                       blocks, stream);
+  return launch_tc<Tin, Tout, 64, 1>(x, wq, a_scale, w_scale, bias, out, s,
+                                     blocks, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -298,6 +1109,76 @@ int sr3d_int8_conv3x3(const void* x, const void* wq, const void* a_scale,
                                         batch, Cin, H, W, Cout, stride, s);
   return launch<float, float>(x, wq, a_scale, w_scale, bias, out, batch, Cin,
                               H, W, Cout, stride, s);
+}
+
+
+// The tensor-core kernel: x [batch, Cin, H, W] contiguous, 16-byte aligned,
+// bf16 (in_bf16 = 1) or fp32, a row W * elem a multiple of 16 bytes; wq:
+// int8 [Cout][3][3][Cin], 16-byte aligned; a_scale, w_scale, bias, out as
+// for sr3d_int8_conv3x3, out 16-byte aligned.  Cin and Cout multiples of
+// 64; tile (int8_plan): BN 128 with MW 1, or BN 64 with MW 1 or 2; TW x R
+// x IMGS <= 128 MW output pixels; BWp the band's padded width (a multiple
+// of 16 bytes, >= (TW - 1) stride + 3 + 16 / elem - 1: the box starts on a
+// 16-byte boundary at or left of the tile's halo); KS 16, 32 or 64
+// channels a TMA box, RS of them in flight (2 to 8); splits <= min(8,
+// Cin / 64) CTAs a cluster, one cluster a tile.  Returns a cudaError_t.
+int sr3d_int8_conv3x3_wgmma(const void* x, const void* wq, const void* a_scale,
+                            const void* w_scale, const void* bias, void* out,
+                            int batch, int Cin, int H, int W, int Cout,
+                            int stride, int in_bf16, int out_bf16, int BN,
+                            int MW, int TW, int R, int IMGS, int BWp, int KS,
+                            int RS, int splits, void* stream) {
+  const int el = in_bf16 ? 2 : 4;
+  TcShape s = {};
+  s.B = batch;
+  s.Cin = Cin;
+  s.H = H;
+  s.W = W;
+  s.O = Cout;
+  s.stride = stride;
+  s.Ho = (H - 1) / stride + 1;
+  s.Wo = (W - 1) / stride + 1;
+  s.TW = TW;
+  s.R = R;
+  s.IMGS = IMGS;
+  s.BR = (R - 1) * stride + 3;
+  s.BWp = BWp;
+  s.KS = KS;
+  s.raw_stages = RS;
+  s.splits = splits;
+  if (batch < 1 || H < 1 || W < 1 || Cin < kChunk || Cin % kChunk ||
+      Cout < BN || (stride != 1 && stride != 2) ||
+      !((BN == 128 && MW == 1) || (BN == 64 && (MW == 1 || MW == 2))) ||
+      Cout % BN || TW < 1 || R < 1 || IMGS < 1 ||
+      (int64_t)TW * R * IMGS > 128 * MW || (W * el) % 16 ||
+      (KS != 16 && KS != 32 && KS != 64) || RS < 2 || RS > kMaxRawStages ||
+      splits < 1 || splits > 8 ||
+      splits > Cin / kChunk || (BWp * el) % 16 ||
+      BWp < (TW - 1) * stride + 3 + 16 / el - 1 || BWp > 256 || s.BR > 256 ||
+      IMGS > 256 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wq) |
+        reinterpret_cast<uintptr_t>(out)) &
+       15))
+    return (int)cudaErrorInvalidValue;
+  s.n_tiles = Cout / BN;
+  s.tiles_w = (s.Wo + TW - 1) / TW;
+  s.tiles_h = (s.Ho + R - 1) / R;
+  const int64_t tiles = (int64_t)((batch + IMGS - 1) / IMGS) * s.tiles_h *
+                        s.tiles_w * s.n_tiles;
+  if (tiles * splits > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(tiles * splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_bf16 && out_bf16)
+    return launch_tc_tile<__nv_bfloat16, __nv_bfloat16>(
+        x, wq, a_scale, w_scale, bias, out, s, BN, MW, blocks, st);
+  if (in_bf16)
+    return launch_tc_tile<__nv_bfloat16, float>(
+        x, wq, a_scale, w_scale, bias, out, s, BN, MW, blocks, st);
+  if (out_bf16)
+    return launch_tc_tile<float, __nv_bfloat16>(
+        x, wq, a_scale, w_scale, bias, out, s, BN, MW, blocks, st);
+  return launch_tc_tile<float, float>(x, wq, a_scale, w_scale, bias, out, s,
+                                      BN, MW, blocks, st);
 }
 
 }  // extern "C"

@@ -62,7 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import spatial_attention
 from ..kernels.groupnorm_swish import gn_swish
-from ..ops.quant import Int8Conv, gn_static_scale
+from ..ops.quant import Int8Conv, Versioned, gn_static_scale
 from .layers import Conv2d, Linear
 
 
@@ -145,7 +145,7 @@ def apply_dropout(x: torch.Tensor, rate: float,
 class ConvBlock(nn.Module):
     """GroupNorm → Swish → (Dropout) → Conv3×3 (the reference ``Block``);
     ``quant`` runs the conv in int8 with the static scale of the GN
-    affine."""
+    affine, made once per version of γ and β."""
 
     def __init__(self, dim_in: int, dim_out: int, groups: int,
                  dtype: torch.dtype, dropout: float = 0.0):
@@ -154,6 +154,7 @@ class ConvBlock(nn.Module):
         self.norm = GroupNormSwish(dim_in, groups)
         self.conv = Int8Conv(dim_in, dim_out, 3, padding=1,
                              compute_dtype=dtype)
+        self._static_scale = Versioned(gn_static_scale)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None,
@@ -162,7 +163,7 @@ class ConvBlock(nn.Module):
         if generator is not None and self.dropout > 0.0:
             h = apply_dropout(h, self.dropout, generator)
         if quant:
-            return self.conv(h, quant=True, a_scale=gn_static_scale(
+            return self.conv(h, quant=True, a_scale=self._static_scale(
                 self.norm.scale, self.norm.bias))
         return self.conv(h)
 

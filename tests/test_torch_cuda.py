@@ -31,8 +31,14 @@ from sr3d_torch.kernels.groupnorm_swish import (
     gn_stats_reference,
     gn_swish_reference,
 )
-from sr3d_torch.kernels.int8_conv import int8_conv_reference
+from sr3d_torch.kernels.int8_conv import (
+    int8_conv_quantized,
+    int8_conv_reference,
+    int8_plan,
+    prepare_weight,
+)
 from sr3d_torch.models.sr3_unet import SR3UNet
+from sr3d_torch.ops.quant import Int8Conv
 
 pytestmark = pytest.mark.cuda
 
@@ -459,3 +465,100 @@ def test_int8_unet_launches_each_gated_conv(cuda):
         torch.cuda.synchronize()
         assert launch_counts()["int8_conv"] == want, qmr
         assert torch.isfinite(out).all()
+
+
+# The tensor-core int8 conv (s8 wgmma, K split over a cluster) at its edge
+# shapes: W below a tile, odd H at stride 2, O = 64 and 512, split and
+# unsplit, bf16 and fp32 in and out.  Bit for bit, and repeats too.
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,O,stride,splits", [
+    ((2, 64, 12, 24), 64, 1, None),     # W = 24 below a tile, ragged rows
+    ((3, 128, 15, 16), 128, 2, None),   # odd H at stride 2, odd batch
+    ((1, 512, 8, 8), 512, 1, 8),        # the deepest level: 8-way split
+    ((2, 256, 16, 16), 512, 2, None),   # stride 2 into 8x8, two images
+    ((8, 192, 128, 128), 64, 1, 1),     # the widest: BN 64, 256 pixels
+    ((8, 128, 64, 64), 128, 1, 1),      # BN 128, unsplit
+])
+def test_int8_conv_tensor_cores_match_plain(cuda, xshape, O, stride, splits,
+                                            dtype, out_dtype):
+    B, C, H, W = xshape
+    plan = int8_plan(B, C, H, W, O, stride,
+                     torch.cuda.get_device_properties(
+                         cuda).multi_processor_count, in_dtype=dtype)
+    assert plan.path == "wgmma", plan.why
+    if splits is not None:
+        assert plan.splits == splits
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = (torch.randn(xshape, generator=g) * 2).to(dtype).to(cuda)
+    w = (torch.randn(O, C, 3, 3, generator=g) * C ** -0.5).to(cuda)
+    b = torch.randn(O, generator=g).to(cuda)
+    for bias, a in ((b, torch.tensor(0.04, device=cuda)), (None, None)):
+        reset_launch_counts()
+        out = int8_conv(x, w, bias, stride=stride, out_dtype=out_dtype,
+                        a_scale=a)
+        again = int8_conv(x, w, bias, stride=stride, out_dtype=out_dtype,
+                          a_scale=a)
+        torch.cuda.synchronize()
+        assert launch_counts()["int8_conv"] == 2
+        ref = int8_conv_reference(x, w, bias, stride=stride,
+                                  out_dtype=out_dtype, a_scale=a)
+        assert out.dtype == out_dtype and out.shape == ref.shape
+        assert torch.equal(out, ref)
+        assert torch.equal(again, out)
+
+
+def test_int8_cached_static_conv_is_one_launch(cuda):
+    """On the cached path a static-scale int8 conv dispatches one kernel
+    and nothing else that computes (views and allocations only); the
+    weights are quantized on the first call alone."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    conv = Int8Conv(128, 128, 3, padding=1,
+                    compute_dtype=torch.bfloat16).to(cuda)
+    x = torch.randn(2, 128, 16, 16, device=cuda).to(torch.bfloat16)
+    a = torch.tensor(0.05, device=cuda)
+    first = conv(x, quant=True, a_scale=a)
+    n = Int8Conv.weight_quantizes
+    reset_launch_counts()
+    with Ops() as mode:
+        out = conv(x, quant=True, a_scale=a)
+    torch.cuda.synchronize()
+    assert Int8Conv.weight_quantizes == n
+    assert launch_counts()["int8_conv"] == 1
+    assert set(mode.ops) <= {"empty", "view", "_unsafe_view", "alias",
+                             "detach"}, mode.ops
+    assert torch.equal(out, first)
+    wk, ws = prepare_weight(conv.weight)
+    assert torch.equal(out, int8_conv_quantized(
+        x, wk, ws, conv.bias, out_dtype=torch.bfloat16, a_scale=a))
+
+
+def test_int8_unet_repeat_forward_quantizes_no_weight(cuda):
+    """A second int8 forward of the tiny UNet launches the kernel once per
+    gated conv again, quantizes no weight and gives the same bits."""
+    torch.manual_seed(0)
+    unet = SR3UNet(inner_channel=64, norm_groups=8, channel_mults=(1, 2),
+                   attn_res=(8,), res_blocks=1, image_size=16,
+                   dtype=torch.bfloat16, quant_min_res=1,
+                   quant_resample=True).to(cuda).eval()
+    x = torch.randn(2, 6, 16, 16, device=cuda)
+    t = torch.rand(2, 1, device=cuda)
+    with torch.no_grad():
+        first = unet(x, t, quant=True)
+        n = Int8Conv.weight_quantizes
+        reset_launch_counts()
+        out = unet(x, t, quant=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["int8_conv"] == 14
+    assert Int8Conv.weight_quantizes == n
+    assert torch.equal(out, first)
