@@ -59,7 +59,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    checked, the PSNR between them; the kernels one UNet forward launches
    in each mode (torch.profiler); then int8 and bf16 requests of 8 in
    turns, three each, their median times, no weight quantized during
-   them.
+   them;
+10. the joint Trainer through the training CLI (``sr3d_torch.cli.main``)
+   at the flagship's full width on a synthetic joint root: 4 steps,
+   a resume to step 6, ``-p val``, then the port's own checkpoint served;
+   the JAX Trainer's files, the resume, finite losses and the kernels
+   launched checked; s/step, the loader-wait share, checkpoint write and
+   read times and sizes, val s/face and peak memory printed.
 
 The line before the last lists the kernels as JSON (top-level numbers at
 the widest main-path shape in bf16, the shapes above under ``shapes``,
@@ -67,7 +73,7 @@ GN+Swish's slowest shape against the library call under ``main_path``;
 ``launches`` from phase 4's DDIM-25 requests, but the int8 conv's from
 phase 9's int8 CLI run, its main path; ``cli_launches`` from that run,
 ``train_launches`` from phase 6's three steps, ``model3_launches`` from
-phase 7's three); the last line
+phase 7's three, ``trainer_launches`` from phase 10); the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
 and when the repository's ``sr3d_torch`` package is not beside this script.
 """
@@ -1085,11 +1091,11 @@ def train_setup(config: Path):
                                             generator=g) * 0.3}
 
 
-def phase_training(dev, flame) -> tuple[dict, dict]:
+def phase_training(dev, flame) -> tuple[dict, dict, float]:
     """The model2 joint train step at the flagship config's full width:
     three steps with the DDIM-25 hand-off, then one with the T=600
     ancestral hand-off.  Returns the kernel launches of the three DDIM
-    steps and of the T=600 step."""
+    steps and of the T=600 step, and the mean of DDIM steps 2-3 (s)."""
     from sr3d_torch.diffusion.gaussian import ddim_sample_loop
     from sr3d_torch.kernels import launch_counts, reset_launch_counts
     from sr3d_torch.models.arcface import FROZEN_PREFIX_SCOPES
@@ -1188,7 +1194,7 @@ def phase_training(dev, flame) -> tuple[dict, dict]:
           f"{anc_counts} (GN+Swish, one launch each: (hand-off + loss) x 55 "
           f"+ 54 recompute)")
     print(f"    {smi_line()}")
-    return ddim_counts, anc_counts
+    return ddim_counts, anc_counts, t_step
 
 
 def phase_model3(dev, flame) -> dict:
@@ -1574,6 +1580,220 @@ def phase_cli(dev, ckpt: Path, tmp: Path) -> tuple[dict, dict]:
     return runs["int8"][1], fwd_launches
 
 
+def write_flame_assets(flame, d: Path) -> tuple[Path, Path]:
+    """``flame`` as the FLAME2020 files ``load_flame`` reads (the model
+    pickle and the landmark embedding), so a config points at them."""
+    import pickle
+
+    d.mkdir(parents=True, exist_ok=True)
+
+    def np_(t):
+        return t.detach().cpu().numpy()
+
+    V = flame.n_vertices
+    P = flame.posedirs.shape[0]
+    parents = np.asarray(flame.parents, np.int64)
+    model = {"f": np_(flame.faces), "v_template": np_(flame.v_template),
+             "shapedirs": np_(flame.shapedirs),
+             "posedirs": np_(flame.posedirs).T.reshape(V, 3, P),
+             "kintree_table": np.stack([parents, np.arange(len(parents))]),
+             "J_regressor": np_(flame.J_regressor),
+             "weights": np_(flame.lbs_weights)}
+    lmk = {"static_lmk_faces_idx": np_(flame.lmk_faces_idx),
+           "static_lmk_bary_coords": np_(flame.lmk_bary_coords),
+           "dynamic_lmk_faces_idx": np_(flame.dynamic_lmk_faces_idx),
+           "dynamic_lmk_bary_coords": np_(flame.dynamic_lmk_bary_coords),
+           "full_lmk_faces_idx": np_(flame.full_lmk_faces_idx),
+           "full_lmk_bary_coords": np_(flame.full_lmk_bary_coords)}
+    with open(d / "generic_model.pkl", "wb") as f:
+        pickle.dump(model, f)
+    np.save(d / "landmark_embedding.npy", lmk, allow_pickle=True)
+    return d / "generic_model.pkl", d / "landmark_embedding.npy"
+
+
+def _merge(base: dict, over: dict) -> dict:
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(base.get(k), dict):
+            _merge(base[k], v)
+        else:
+            base[k] = v
+    return base
+
+
+def phase_trainer(dev, flame, tmp: Path, bare_step_s: float) -> dict:
+    """The joint Trainer as users run it, at the flagship config's full
+    width: a synthetic joint root (8 actors × 4 images, 224² crops, 16 →
+    128, n_shape 300) and two val faces written by the port's generators,
+    the FLAME files of ``flame``; an overlay of the flagship YAML that
+    points there (width and depth unchanged; the DDIM-25 hand-off and val
+    sampler, checkpoints every 2 steps keeping 2, ``evaluate_MICA`` every
+    2, ``evaluate`` and the train visualisation every 4, a log line every
+    2); then ``sr3d_torch.cli.main.main``: train 4 steps, train 2 more
+    (a resume at step 4 that ends at 6), ``-p val -ckt`` step 6's
+    checkpoint; then ``Predictor.from_config`` serves that checkpoint, a
+    request of 8.  Checks the files of the JAX Trainer, finite losses, the
+    resume, the kernels launched; prints the Trainer's s/step, the share
+    of the loop spent waiting on the loader, the checkpoints' write and
+    read times and sizes, val s/face and peak memory.  Returns the
+    launches of the phase."""
+    import yaml
+
+    from sr3d_torch.cli.main import main as cli_main
+    from sr3d_torch.data.synthetic import (
+        generate_synthetic_faces,
+        generate_synthetic_joint_root,
+    )
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.serve import Predictor
+
+    root = tmp / "trainer"
+    t0 = time.perf_counter()
+    generate_synthetic_joint_root(root / "joint", name="SYNTH", n_actors=8,
+                                  imgs_per_actor=4, img_res=224, lr_res=16,
+                                  hr_res=128, n_shape=300, n_exp=100, seed=0)
+    generate_synthetic_faces(root / "val", n=2, l_res=16, r_res=128, seed=1)
+    model_pkl, lmk_npy = write_flame_assets(flame, root / "flame")
+    t_data = time.perf_counter() - t0
+    over = {
+        "name": "trainer_smoke", "output_dir": str(root / "out"),
+        "mica": {"datasets": {"root": str(root / "joint"),
+                              "training_data": ["SYNTH"],
+                              "eval_data": ["SYNTH"]},
+                 "model": {"flame_model_path": str(model_pkl),
+                           "flame_lmk_embedding_path": str(lmk_npy)},
+                 "train": {"eval_steps": 2}},
+        "sr": {"datasets": {"val": {"dataroot": str(root / "val")}},
+               "model": {"diffusion": {
+                   "train_sampler": "ddim", "train_ddim_steps": 25,
+                   "sampler": "ddim", "ddim_steps": 25,
+                   "sampler_init": "marginal"}}},
+        "train": {"checkpoint_steps": 2, "checkpoint_max_keep": 2,
+                  "eval_steps": 4, "log_steps": 2, "vis_steps": 4,
+                  "val_n_img": 1},
+    }
+    overlay = root / "overlay.yml"
+    with open(CONFIG) as f:
+        base = yaml.safe_load(f)
+    overlay.write_text(yaml.safe_dump(_merge(base, over)))
+    out = root / "out" / "trainer_smoke"
+    print(f"[10] Trainer: joint root (8 actors x 4 images, 224^2, "
+          f"16->128), 2 val faces and the FLAME files written in "
+          f"{t_data:.1f} s; overlay of {CONFIG.name} (widths and depth "
+          f"unchanged, DDIM-25 hand-off and val sampler)")
+
+    import gc
+
+    reset_launch_counts()
+    walls, peaks = {}, {}
+    for tag, argv in (
+            ("train 4", ["-p", "train", "-c", str(overlay),
+                         "--max-steps", "4"]),
+            ("resume +2", ["-p", "train", "-c", str(overlay),
+                           "--max-steps", "2"]),
+            ("val", ["-p", "val", "-c", str(overlay), "-ckt",
+                     str(out / "checkpoint" / "ckpt_0000000006.npz")])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        require(cli_main(argv) == 0, f"cli main {tag}")
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        peaks[tag] = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = launch_counts()
+
+    ckpts = sorted(p.name for p in (out / "checkpoint").glob("ckpt_*.npz"))
+    require(ckpts == ["ckpt_0000000004.npz", "ckpt_0000000006.npz"],
+            f"rotated checkpoints {ckpts}")
+    res = out / "results" / "step_4" / "00000"
+    want = [out / "best_model.npz", out / "best_model.txt",
+            out / "best_models" / "best_model_3.npz",
+            out / "val_metrics.jsonl", out / "logs" / "full_config.yaml",
+            out / "logs" / "config.yml", out / "logs" / "metrics.jsonl",
+            out / "train_images" / "1_4" / "train_3d.jpg",
+            *(res / n for n in ("mesh.ply", "mesh.obj", "identity.npy",
+                                "kpt7.npy", "kpt68.npy", "00000_sr.png",
+                                "00000_hr.png", "00000_inf.png",
+                                "00000_lr.png")),
+            out / "results" / "step_6" / "00000" / "mesh.ply"]
+    missing = [str(p.relative_to(out)) for p in want if not p.exists()]
+    require(not missing, f"Trainer files missing: {missing}")
+    rows = [json.loads(x) for x in
+            (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+
+    def tagged(tag):
+        return [(r["step"], r["value"]) for r in rows if r["tag"] == tag]
+
+    losses = tagged("train/loss")
+    require([s for s, _ in losses] == [2, 4, 6],
+            f"train/loss logged at steps {[s for s, _ in losses]}; a resume "
+            f"at step 4 that ends at 6 logs 2, 4, 6")
+    require(all(math.isfinite(v) for _, v in tagged("train/loss")
+                + tagged("train/l_sr") + tagged("train/l_mica")
+                + tagged("val_mica/combined")), "non-finite losses")
+    val = [json.loads(x) for x in
+           (out / "val_metrics.jsonl").read_text().splitlines()]
+    require([v["step"] for v in val] == [4, 6]
+            and all(math.isfinite(v["psnr"]) for v in val),
+            f"val_metrics {val}")
+    from sr3d_torch.train.checkpoint import npz_leaves
+    leaves = npz_leaves(out / "checkpoint" / "ckpt_0000000006.npz")
+    require(int(leaves[1]) == 6 and int(leaves[2]) == 6,
+            f"step 6's checkpoint holds global_step {int(leaves[1])}, "
+            f"state.step {int(leaves[2])}")
+    require(counts["gn_swish"] > 0 and counts["spatial_attention"] > 0,
+            f"the Trainer ran the plain versions: launches {counts}")
+
+    # train -> checkpoint -> serve, all written by the port
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    cfg = update_cfg(get_cfg_defaults(), str(overlay))
+    t0 = time.perf_counter()
+    p = Predictor.from_config(
+        cfg, checkpoint=str(out / "checkpoint" / "ckpt_0000000006.npz"),
+        batch_size=8)
+    t_load = time.perf_counter() - t0
+    lr = np.random.RandomState(3).randint(0, 256, (8, 16, 16, 3), np.uint8)
+    served, t_serve = serve(p, lr)
+    check_outputs(served, 8, flame.n_vertices, 300)
+    del p
+
+    per_it = dict(tagged("train/sec_per_it"))
+    wait = sum(v for _, v in tagged("perf/loader_wait_s"))
+    loop = sum(v for _, v in tagged("perf/loop_s"))
+    cadence = sum(v for _, v in tagged("perf/cadence_s"))
+    writes = tagged("perf/ckpt_write_s")
+    reads = tagged("perf/ckpt_read_s")
+    mib = tagged("perf/ckpt_write_mib")
+    per_face = tagged("perf/val_s_per_face")
+    print(f"    cli main: train 4 steps {walls['train 4']:.1f} s, resume at "
+          f"step 4 to 6 {walls['resume +2']:.1f} s, -p val -ckt step 6 "
+          f"{walls['val']:.1f} s (each builds its Trainer)")
+    print(f"    s/step (log windows, checkpoints and evals excluded): "
+          f"steps 1-2 {per_it[2]:.3f}, 3-4 {per_it[4]:.3f}, 5-6 "
+          f"{per_it[6]:.3f}; phase 6's bare step {bare_step_s:.3f} s")
+    kinds = {k: sum(v for _, v in tagged(f"perf/{k}_s"))
+             for k in ("checkpoint", "evaluate_mica", "evaluate", "vis")}
+    print(f"    loader wait {wait:.3f} s of {loop - cadence:.3f} s of "
+          f"training ({100 * wait / (loop - cadence):.1f}%); loop "
+          f"{loop:.1f} s with {cadence:.1f} s of cadenced work: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in kinds.items()))
+    print(f"    checkpoint writes {len(writes)}: "
+          f"{', '.join(f'{v:.2f}' for _, v in writes)} s, "
+          f"{mib[0][1]:.0f} MiB each; reads "
+          f"{', '.join(f'{v:.2f}' for _, v in reads)} s")
+    print(f"    evaluate (DDIM-25, exports): "
+          f"{', '.join(f'{v:.3f}' for _, v in per_face)} s/face; peak "
+          f"device memory " + ", ".join(f"{k} {v:.2f} GiB"
+                                        for k, v in peaks.items()))
+    print(f"    served the port's own step-6 checkpoint: from_config "
+          f"{t_load:.2f} s, request of 8 {t_serve * 1e3:.1f} ms, outputs "
+          f"checked")
+    print(f"    files of the JAX Trainer present; losses finite; launches "
+          f"{counts}")
+    print(f"    {smi_line()}")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1689,7 +1909,7 @@ def main() -> int:
 
     # 6. training, full width
     del p
-    train_counts, _ = phase_training(dev, flame)
+    train_counts, _, bare_step_s = phase_training(dev, flame)
 
     # 7. model3 training, full width
     model3_counts = phase_model3(dev, flame)
@@ -1699,6 +1919,10 @@ def main() -> int:
         ckpt = phase_checkpoints(dev, flame, Path(tmp), req_a)
         cli_counts, fwd_launches = phase_cli(dev, ckpt, Path(tmp))
     rec["int8_conv"]["forward_launches"] = fwd_launches
+
+    # 10. the joint Trainer through the training CLI
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        trainer_counts = phase_trainer(dev, flame, Path(tmp), bare_step_s)
 
     kernels = []
     meta = {
@@ -1726,6 +1950,7 @@ def main() -> int:
                         "cli_launches": cli_counts[name],
                         "train_launches": train_counts[name],
                         "model3_launches": model3_counts[name],
+                        "trainer_launches": trainer_counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

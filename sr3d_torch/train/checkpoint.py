@@ -1,8 +1,9 @@
-"""The JAX package's checkpoints, read without JAX.
+"""The JAX package's checkpoints, read and written without JAX.
 
 Counterpart of ``sr3d_tpu/train/checkpoint.py`` (``save_state_npz`` /
-``load_state_npz`` / ``load_leaves_into`` and its ``CheckpointManager``'s
-numpy layout).  A checkpoint there is a ``.npz`` of arrays ``leaf_0``,
+``load_state_npz`` / ``load_leaves_into`` / ``load_arcface_npz`` /
+``transfer_sr_adam_moments`` and its ``CheckpointManager``'s numpy
+layout).  A checkpoint there is a ``.npz`` of arrays ``leaf_0``,
 ``leaf_1``, … in ``jax.tree_util``'s flatten order of a pytree:
 
 * dict keys in sorted order at every level, tuple and NamedTuple fields in
@@ -16,13 +17,29 @@ numpy layout).  A checkpoint there is a ``.npz`` of arrays ``leaf_0``,
   that network's tree alone.
 
 ``jax_tree_flatten`` / ``jax_tree_unflatten`` reproduce that order on
-nested dicts, lists, tuples and ``None``.  The optimizer state's leaf count
-depends on the optimizer (optax's ``multi_transform``, the frozen labels,
-``MultiSteps`` at ``grad_accum`` > 1), and serving needs none of it, so
-``load_state_npz`` counts the leaves it knows from both ends and skips the
-block between.  Every leaf it reads is checked against the shape the modules
-give it.  The orbax layout needs orbax, which is JAX's: the port reads the
-``.npz`` layouts only.
+nested dicts, lists, tuples and ``None``.
+
+The optimizer state is optax's ``multi_transform`` over the labels
+``arcface``, ``frozen``, ``mapping``, ``sr`` (sorted), each masked to its
+label's leaves: ``adam`` keeps ``(count, mu, nu)``, ``adamw`` that and its
+learning-rate schedule's count, ``set_to_zero`` (``frozen``) nothing; at
+``grad_accum`` k > 1 ``MultiSteps`` wraps it as ``(mini_step,
+gradient_step, inner state, acc_grads)``, ``acc_grads`` the running mean
+of the gradients over the whole parameter tree.  ``optimizer_tree`` builds
+that tree from the port's ``AdamW`` (its groups ``sr``, ``arcface``,
+``mapping``; ``step``, ``exp_avg``, ``exp_avg_sq`` per parameter; the
+accumulated mean in ``.grad`` between micro-steps) through the weight
+bridge's names and transposes, and ``load_optimizer_tree`` puts one back,
+so ``save_train_state`` writes files that the JAX package's
+``load_state_npz`` and ``CheckpointManager`` read, and ``load_train_state``
+resumes from the JAX package's own.  The frozen ArcFace prefix has no
+gradient in the port: its ``acc_grads`` are written as zeros (its update
+is zero either way).
+
+``load_state_npz`` (serving) counts the leaves it knows from both ends and
+skips the optimizer's block between.  Every leaf read is checked against
+the shape the modules give it.  The orbax layout needs orbax, which is
+JAX's: the port reads and writes the ``.npz`` layouts only.
 """
 
 from __future__ import annotations
@@ -32,8 +49,16 @@ from pathlib import Path
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
-from ..utils.bridge import export_jax_params
+from ..utils.bridge import (
+    export_jax_params,
+    flax_to_state_dict,
+    load_jax_ema,
+    load_jax_params,
+    state_dict_to_flax,
+)
+from .joint import group_update_count
 
 
 LEAF = object()  # a leaf's place in a treedef
@@ -172,3 +197,236 @@ def latest_npz_step(directory: str | os.PathLike) -> int | None:
 def npz_step_path(directory: str | os.PathLike, step: int) -> Path:
     """The numpy ``CheckpointManager``'s file of ``step``."""
     return Path(directory) / f"ckpt_{step:010d}.npz"
+
+
+# --------------------------------------------------------------------------
+# the optimizer state in optax's layout, and whole train states
+# --------------------------------------------------------------------------
+
+LABELS = ("arcface", "mapping", "sr")          # the labels with leaves
+SCHEDULED = ("arcface", "mapping")              # adamw + StepLR schedule
+
+
+def _networks(modules) -> dict[str, torch.nn.Module]:
+    return {"arcface": modules.arcface, "mapping": modules.mapping,
+            "sr": modules.unet}
+
+
+def _wrap(label: str, tree: dict) -> dict:
+    """The UNet's and the mapping network's flax trees sit under
+    ``params``; ArcFace's parameters do not."""
+    return tree if label == "arcface" else {"params": tree}
+
+
+def _group_names(opt: torch.optim.Optimizer, modules
+                 ) -> dict[str, list[tuple[str, torch.nn.Parameter]]]:
+    """Each param group's parameters by module name, in the module's
+    order."""
+    nets = _networks(modules)
+    out = {}
+    for g in opt.param_groups:
+        ids = {id(p) for p in g["params"]}
+        out[g["name"]] = [(n, p) for n, p in nets[g["name"]]
+                          .named_parameters() if id(p) in ids]
+    return out
+
+
+def _group_count(opt: torch.optim.Optimizer, name: str) -> int:
+    return next(group_update_count(opt, g) for g in opt.param_groups
+                if g["name"] == name)
+
+
+def optimizer_tree(modules, state) -> Any:
+    """The port's optimizer state (``state``: a
+    ``train.joint.JointTrainState``) as optax's opt_state tree of numpy
+    arrays (plain tuples in place of the NamedTuples: the same leaves in
+    the same order)."""
+    opt = state.opt
+    named = _group_names(opt, modules)
+    inner = {}
+    for label in LABELS:
+        params = named[label]
+        mu, nu = {}, {}
+        for n, p in params:
+            st = opt.state.get(p, {})
+            mu[n] = st.get("exp_avg", torch.zeros_like(p))
+            nu[n] = st.get("exp_avg_sq", torch.zeros_like(p))
+        count = np.asarray(_group_count(opt, label), np.int32)
+        adam = (count, _wrap(label, state_dict_to_flax(mu)),
+                _wrap(label, state_dict_to_flax(nu)))
+        inner[label] = ((adam, (), (count,)) if label in SCHEDULED
+                        else (adam, ()))
+    k = int(state.grad_accum)
+    if k <= 1:
+        return inner
+    acc = {}
+    mid = state.mini_step > 0
+    for label, net in _networks(modules).items():
+        acc[label] = _wrap(label, state_dict_to_flax({
+            n: p.grad if mid and p.grad is not None else torch.zeros_like(p)
+            for n, p in net.named_parameters()}))
+    return (np.asarray(state.mini_step, np.int32),
+            np.asarray(_group_count(opt, "mapping"), np.int32), inner, acc,
+            ())
+
+
+def _tensors(label: str, tree, device) -> dict[str, torch.Tensor]:
+    return {n: t.to(device) for n, t in flax_to_state_dict(
+        tree if label == "arcface" else tree["params"]).items()}
+
+
+def load_optimizer_tree(modules, state, tree) -> None:
+    """Put an opt_state tree of :func:`optimizer_tree`'s layout (numpy)
+    into ``state``'s optimizer, in place: moments and counts per group; at
+    ``grad_accum`` > 1 also ``mini_step`` and, between micro-steps, the
+    accumulated mean into the trainable parameters' ``.grad``."""
+    opt = state.opt
+    k = int(state.grad_accum)
+    if k > 1:
+        mini, _, inner, acc, _ = tree
+        state.mini_step = int(mini)
+    else:
+        inner, acc = tree, None
+        state.mini_step = 0
+    dev = modules.device
+    for label, params in _group_names(opt, modules).items():
+        (count, mu, nu) = inner[label][0]
+        count = int(count)
+        mu, nu = _tensors(label, mu, dev), _tensors(label, nu, dev)
+        for n, p in params:
+            if count == 0:
+                opt.state.pop(p, None)
+                continue
+            opt.state[p] = {"step": torch.tensor(float(count),
+                                                 dtype=torch.float32),
+                            "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+    for label, net in _networks(modules).items():
+        grads = (_tensors(label, acc[label], dev)
+                 if acc is not None and state.mini_step > 0 else None)
+        for n, p in net.named_parameters():
+            p.grad = (grads[n] if grads is not None and p.requires_grad
+                      else None)
+
+
+def train_state_tree(modules, state, meta: Mapping[str, int]) -> dict:
+    """``{"meta", "state"}`` in the JAX package's layout (numpy): the
+    tree ``save_state_npz`` flattens for a ``JointTrainState``."""
+    tmpl = export_jax_params(modules)
+    params = {k: tmpl[k] for k in ("arcface", "mapping", "sr")}
+    ema = None
+    if state.ema is not None:
+        ema = ({"params": state_dict_to_flax(state.ema.params)},
+               np.asarray(state.ema.step, np.int32))
+    return {"meta": {k: np.asarray(int(v), np.int64)
+                     for k, v in meta.items()},
+            "state": (np.asarray(state.step, np.int32), params,
+                      tmpl["arcface_stats"], optimizer_tree(modules, state),
+                      ema)}
+
+
+def save_train_state(path: str | os.PathLike, modules, state,
+                     meta: Mapping[str, int]) -> Path:
+    """Write ``modules`` and ``state`` (params, ArcFace statistics, the
+    optimizer in optax's layout, the EMA) and ``meta`` as the JAX
+    package's ``save_state_npz`` does."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    leaves, _ = jax_tree_flatten(train_state_tree(modules, state, meta))
+    tmp = path.with_name(path.name + ".tmp.npz")
+    np.savez(tmp, **{f"leaf_{i}": np.asarray(x)
+                     for i, x in enumerate(leaves)})
+    os.replace(tmp, path)
+    return path
+
+
+def load_train_state(path: str | os.PathLike, modules, state,
+                     reset_optimizer: bool = False) -> dict:
+    """Resume ``modules`` and ``state`` in place from a train-state
+    ``.npz`` (the port's or the JAX package's): parameters, ArcFace
+    statistics, the step, the EMA and, unless ``reset_optimizer``, the
+    optimizer.  Returns the file's ``meta``.  Raises ValueError where the
+    leaf count or a shape differs from this config's state (e.g. a
+    converted network, not a train state)."""
+    tree = train_state_tree(modules, state, {"epoch": 0, "global_step": 0})
+    t_leaves, treedef = jax_tree_flatten(tree)
+    leaves = npz_leaves(path)
+    if len(leaves) != len(t_leaves):
+        raise ValueError(
+            f"{path}: {len(leaves)} arrays, target has {len(t_leaves)}")
+    _check_shapes(path, leaves, t_leaves)
+    got = jax_tree_unflatten(treedef, leaves)
+    step, params, stats, opt_tree, ema = got["state"]
+    load_jax_params(modules, dict(params, arcface_stats=stats))
+    state.step = int(step)
+    if ema is not None:
+        state.ema = load_jax_ema(ema[0], int(ema[1]), modules.device)
+    if not reset_optimizer:
+        load_optimizer_tree(modules, state, opt_tree)
+    return {k: int(v) for k, v in got["meta"].items()}
+
+
+def load_arcface_npz(path: str | os.PathLike, modules) -> None:
+    """A converted ArcFace (``utils/convert.py --kind arcface``: the leaves
+    of ``{"batch_stats", "params"}``) into ``modules.arcface``."""
+    tmpl = export_jax_params(modules)
+    tree = load_leaves_into(path, {"batch_stats": tmpl["arcface_stats"],
+                                   "params": tmpl["arcface"]})
+    load_jax_params(modules, dict(tmpl, arcface=tree["params"],
+                                  arcface_stats=tree["batch_stats"]))
+
+
+def transfer_sr_adam_moments(modules, state, opt_npz_path
+                             ) -> bool:
+    """An SR-only run's Adam state (``I*_E*_opt.npz``: the leaves of
+    ``optax.adam(lr).init(sr_params)``, i.e. ``count``, ``mu``, ``nu``)
+    into the optimizer's ``sr`` group: moments and count.  Returns False,
+    changing nothing, where the file does not match this UNet."""
+    sr = export_jax_params(modules)["sr"]
+    template = ((np.zeros((), np.int32), sr, sr), ())
+    try:
+        (count, mu, nu), _ = load_leaves_into(opt_npz_path, template)
+    except ValueError:
+        return False
+    opt = state.opt
+    named = _group_names(opt, modules)["sr"]
+    dev = modules.device
+    mu, nu = _tensors("sr", mu, dev), _tensors("sr", nu, dev)
+    for n, p in named:
+        opt.state[p] = {"step": torch.tensor(float(int(count)),
+                                             dtype=torch.float32),
+                        "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+    return True
+
+
+class CheckpointManager:
+    """The JAX package's numpy ``CheckpointManager`` layout:
+    ``{directory}/ckpt_{step:010d}.npz`` train states, the newest
+    ``max_to_keep`` kept."""
+
+    def __init__(self, directory: str | os.PathLike, max_to_keep: int = 5):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = int(max_to_keep)
+
+    def save(self, step: int, modules, state, metadata: Mapping[str, int]
+             ) -> Path:
+        path = save_train_state(npz_step_path(self.directory, step),
+                                modules, state, metadata)
+        kept = sorted(self.directory.glob("ckpt_*.npz"))
+        for old in kept[:-self.max_to_keep]:
+            old.unlink()
+        return path
+
+    def latest_step(self) -> int | None:
+        return latest_npz_step(self.directory)
+
+    def restore(self, step: int | None, modules, state,
+                reset_optimizer: bool = False) -> dict:
+        """Resume from ``step`` (None: the newest) in place; returns the
+        meta.  FileNotFoundError where there is none."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        return load_train_state(npz_step_path(self.directory, step),
+                                modules, state, reset_optimizer)

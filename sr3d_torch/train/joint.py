@@ -103,13 +103,17 @@ class JointModules:
 class JointTrainState:
     """What a train step carries besides the modules: the step count (train
     steps called, micro-steps under gradient accumulation), the optimizer
-    (with its moments), the EMA of the UNet's parameters and
-    ``grad_accum``, the micro-steps an optimizer update averages."""
+    (with its moments), the EMA of the UNet's parameters, ``grad_accum``,
+    the micro-steps an optimizer update averages, and ``mini_step``, the
+    micro-steps taken since the last update (optax ``MultiSteps``'
+    ``mini_step``; their mean gradient waits in the parameters'
+    ``.grad``)."""
 
     step: int
     opt: torch.optim.Optimizer
     ema: EmaState | None
     grad_accum: int = 1
+    mini_step: int = 0
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -237,14 +241,27 @@ def make_optimizer(cfg, modules: JointModules) -> torch.optim.AdamW:
     return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8)
 
 
-def set_step_lr(opt: torch.optim.Optimizer, step: int) -> None:
-    """Set each StepLR group's lr for the update after ``step`` updates:
-    ``base_lr · lr_gamma^(step // lr_update_step)`` (optax's staircase
-    ``exponential_decay``)."""
+def group_update_count(opt: torch.optim.Optimizer, group: dict) -> int:
+    """The updates ``group`` (one of ``opt.param_groups``) has applied: the
+    ``step`` of its first parameter with state, 0 before the first."""
+    for p in group["params"]:
+        st = opt.state.get(p)
+        if st and "step" in st:
+            return int(st["step"])
+    return 0
+
+
+def set_step_lr(opt: torch.optim.Optimizer, step: int | None = None
+                ) -> None:
+    """Set each StepLR group's lr for its next update:
+    ``base_lr · lr_gamma^(n // lr_update_step)`` (optax's staircase
+    ``exponential_decay``), ``n`` = ``step``, or where it is None the
+    updates that group has applied (its schedule's count in optax)."""
     for g in opt.param_groups:
         if "base_lr" in g:
+            n = group_update_count(opt, g) if step is None else step
             g["lr"] = g["base_lr"] * g["lr_gamma"] ** (
-                step // g["lr_update_step"])
+                n // g["lr_update_step"])
 
 
 def init_train_state(modules: JointModules, cfg) -> JointTrainState:
@@ -465,7 +482,7 @@ def make_train_step(ema_cfg: dict | None = None, with_vis: bool = False):
                    draws: dict | None = None
                    ) -> tuple[JointTrainState, dict]:
         k = state.grad_accum
-        micro = state.step % k
+        micro = state.mini_step
         params = [p for g in state.opt.param_groups for p in g["params"]]
         acc = [p.grad for p in params] if micro else None
         state.opt.zero_grad(set_to_none=True)
@@ -485,8 +502,9 @@ def make_train_step(ema_cfg: dict | None = None, with_vis: bool = False):
             torch._foreach_div_(grads, micro + 1)
             torch._foreach_add_(grads, acc)
         if micro == k - 1:
-            set_step_lr(state.opt, state.step // k)
+            set_step_lr(state.opt)
             state.opt.step()
+        state.mini_step = (micro + 1) % k
         if state.ema is not None and ema_cfg is not None:
             ema_update(state.ema, dict(modules.unet.named_parameters()),
                        decay=float(ema_cfg["ema_decay"]),

@@ -562,3 +562,67 @@ def test_int8_unet_repeat_forward_quantizes_no_weight(cuda):
     assert launch_counts()["int8_conv"] == 14
     assert Int8Conv.weight_quantizes == n
     assert torch.equal(out, first)
+
+
+def test_renderer_on_the_card_matches_the_cpu(cuda):
+    """The scatter rasterizer on the card against the CPU's, the golden
+    render's tolerance (mean |Δ| < 1 level, < 0.5% more than 8 apart), on
+    the synthetic FLAME mean head and a batch of two sphere heads."""
+    import numpy as np
+
+    from sr3d_torch.eval.renderer import render_mesh, render_meshes
+    from sr3d_torch.models.flame import (
+        flame_forward,
+        sphere_flame,
+        synthetic_flame,
+    )
+
+    def close(a, b):
+        a = (a.cpu().numpy().clip(0, 1) * 255).astype(np.uint8).astype(int)
+        b = (b.cpu().numpy().clip(0, 1) * 255).astype(np.uint8).astype(int)
+        d = np.abs(a - b)
+        assert d.mean() < 1.0 and (d > 8).mean() < 0.005
+
+    fl = synthetic_flame(n_shape=16, n_exp=8, seed=0)
+    v, _, _ = flame_forward(fl, torch.zeros((1, 16)))
+    close(render_mesh(v[0].to(cuda), fl.faces.to(cuda), image_size=256),
+          render_mesh(v[0], fl.faces, image_size=256))
+    sp = sphere_flame(n_shape=8, n_exp=4)
+    v, _, _ = flame_forward(sp, torch.randn(2, 8,
+                                            generator=torch.Generator()
+                                            .manual_seed(0)))
+    close(render_meshes(v.to(cuda), sp.faces.to(cuda), image_size=128),
+          render_meshes(v, sp.faces, image_size=128))
+
+
+def test_prefetch_matches_a_synchronous_copy(cuda):
+    """``prefetch_to_device`` (pinned memory, a side stream, depth 2) gives
+    the tensors a synchronous copy gives, in the loader's order, over three
+    epochs, while the consumer's stream is busy with other work."""
+    import numpy as np
+
+    from sr3d_torch.data.pipeline import (
+        BatchLoader,
+        prefetch_to_device,
+        shard_batch,
+    )
+
+    rng = np.random.RandomState(0)
+    items = [{"HR": rng.rand(16, 16, 3).astype(np.float32),
+              "flame_shape": rng.rand(8).astype(np.float32),
+              "name": f"item{i}"} for i in range(10)]
+    loader = BatchLoader(items, 3, shuffle=True, seed=1, num_workers=2)
+    n = 3 * len(loader)
+    ref_loader = BatchLoader(items, 3, shuffle=True, seed=1, num_workers=0)
+    it_ref = iter(ref_loader)
+    ref = [shard_batch(next(it_ref), cuda) for _ in range(n)]
+    it = iter(loader)
+    got = prefetch_to_device((next(it) for _ in range(n)), size=2,
+                             device=cuda)
+    busy = torch.randn(2048, 2048, device=cuda)
+    for a, b in zip(got, ref, strict=True):
+        busy = busy @ busy / 2048      # keeps the compute stream occupied
+        assert a["HR"].is_cuda and a["name"] == b["name"]
+        for k in ("HR", "flame_shape"):
+            assert torch.equal(a[k] * 1, b[k]), k
+    torch.cuda.synchronize()

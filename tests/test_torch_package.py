@@ -66,7 +66,13 @@ def test_import_leaves_jax_out():
     assert "sr3d_torch.serve" in mods and len(mods) > 15
     assert {"sr3d_torch.kernels.conv3x3", "sr3d_torch.diffusion.ema",
             "sr3d_torch.models.masking",
-            "sr3d_torch.data.synthetic"} <= set(mods)
+            "sr3d_torch.data.synthetic", "sr3d_torch.data.joint",
+            "sr3d_torch.data.lrhr", "sr3d_torch.data.pipeline",
+            "sr3d_torch.data.lmdb_reader", "sr3d_torch.data.srpk",
+            "sr3d_torch.eval.metrics", "sr3d_torch.eval.renderer",
+            "sr3d_torch.train.trainer", "sr3d_torch.utils.logging",
+            "sr3d_torch.utils.profiling",
+            "sr3d_torch.cli.main"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -94,4 +100,11 @@ def test_entry_points_without_device_raise_where_no_gpu():
         Predictor.from_config(cfg, init_seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         sr3d_torch.resolve_device(None)
+    from sr3d_torch.cli.main import main
+    from sr3d_torch.data.pipeline import prefetch_to_device
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["-c", str(REPO / "configs" / "tiny_8_16_model2.yml")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(prefetch_to_device(iter([{"x": np.zeros(2)}])))
     assert sr3d_torch.resolve_device("cpu") == torch.device("cpu")
