@@ -10,12 +10,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: compile the CUDA kernels from ``sr3d_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the flagship
    UNet's shapes (GN+Swish at one width of each level and two stats + apply
-   shapes; attention at the mid block, B = 8, 4 and 1, and past 256 tokens,
+   shapes; attention at the mid block, B = 8, 4, 2 and 1, and past 256 tokens,
    1024 and 4096), bf16 and fp32, with its time, the plain version's, one
    PyTorch library call's for the same function (a yardstick the port never
    calls) and the card's bound for the work; GN+Swish also at every other
    input of the main paths (a meta-device trace of the UNet at B = 8, 4,
-   1), bf16, checked and timed against the library call; each shape's plan
+   2, 1), bf16, checked and timed against the library call; each shape's plan
    (GN: one pass over a cluster or stats + apply; attention: tensor cores
    over a cluster or CUDA cores; conv: tensor or CUDA cores, split K),
    bit-equal repeats of the cluster reductions, and the tensor-core
@@ -65,7 +65,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    a resume to step 6, ``-p val``, then the port's own checkpoint served;
    the JAX Trainer's files, the resume, finite losses and the kernels
    launched checked; s/step, the loader-wait share, checkpoint write and
-   read times and sizes, val s/face and peak memory printed.
+   read times and sizes, val s/face and peak memory printed;
+11. the staged workflow's branch trainers at the same full width, on phase
+   10's data: SR-only pretraining through ``cli.main --sr-only`` (16 → 128
+   faces, batch 2, 4 steps and a resume to 6), the joint Trainer
+   warm-started from its pair (2 steps), the DDPM family (2 ``SRModel``
+   steps at B = 2, a DDIM-25 request of 8), ``MicaTrainer.fit`` with its
+   ``Validator`` (4 steps and a resume to 6), the alternating trainer
+   through ``cli.main --legacy`` (3 DDIM-25 steps, then a resumed T=600
+   step); files, counters, finite losses, moved parameters and each call's
+   launches checked; s/step, peak memory and the pairs' sizes and write /
+   read times printed.
 
 The line before the last lists the kernels as JSON (top-level numbers at
 the widest main-path shape in bf16, the shapes above under ``shapes``,
@@ -73,7 +83,9 @@ GN+Swish's slowest shape against the library call under ``main_path``;
 ``launches`` from phase 4's DDIM-25 requests, but the int8 conv's from
 phase 9's int8 CLI run, its main path; ``cli_launches`` from that run,
 ``train_launches`` from phase 6's three steps, ``model3_launches`` from
-phase 7's three, ``trainer_launches`` from phase 10); the last line
+phase 7's three, ``trainer_launches`` from phase 10, ``sr_only_launches``
+from phase 11's SR-only CLI calls, ``legacy_launches`` from its
+``--legacy`` calls); the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
 and when the repository's ``sr3d_torch`` package is not beside this script.
 """
@@ -176,13 +188,15 @@ GN_SHAPES = ((8, 192, 128, 128), (8, 64, 128, 128), (8, 384, 64, 64),
              (8, 768, 32, 32), (8, 1024, 16, 16), (8, 1024, 8, 8),
              (8, 512, 8, 8), (1, 64, 128, 128), (2, 64, 5, 10),
              (1, 512, 128, 128))
-# the mid block at B = 8, 4 (training) and 1, a 16² attention level (no
-# repo config has one), the 16_32 configs' mid block (4 tokens); past the
-# 256 tokens the tensor-core kernel holds, the long path: the default
-# attn_res (16) over 256² data (1024 tokens) and over 512² data (4096)
-ATTN_SHAPES = ((8, 64, 512), (4, 64, 512), (1, 64, 512), (2, 256, 128),
-               (8, 4, 512), (8, 1024, 512), (1, 4096, 512))
-MAIN_PATH_BATCHES = (8, 4, 1)   # DDIM-25 serving, training, T=600 serving
+# the mid block at B = 8, 4 (training) , 2 (SR-only training) and 1, a
+# 16² attention level (no repo config has one), the 16_32 configs' mid
+# block (4 tokens); past the 256 tokens the tensor-core kernel holds, the
+# long path: the default attn_res (16) over 256² data (1024 tokens) and
+# over 512² data (4096)
+ATTN_SHAPES = ((8, 64, 512), (4, 64, 512), (2, 64, 512), (1, 64, 512),
+               (2, 256, 128), (8, 4, 512), (8, 1024, 512), (1, 4096, 512))
+# DDIM-25 serving, joint training, SR-only training, T=600 serving
+MAIN_PATH_BATCHES = (8, 4, 2, 1)
 
 
 def main_path_gn_shapes() -> list[tuple[int, int, int, int]]:
@@ -1620,7 +1634,8 @@ def _merge(base: dict, over: dict) -> dict:
     return base
 
 
-def phase_trainer(dev, flame, tmp: Path, bare_step_s: float) -> dict:
+def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
+                  ) -> tuple[dict, Path]:
     """The joint Trainer as users run it, at the flagship config's full
     width: a synthetic joint root (8 actors × 4 images, 224² crops, 16 →
     128, n_shape 300) and two val faces written by the port's generators,
@@ -1635,7 +1650,7 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float) -> dict:
     resume, the kernels launched; prints the Trainer's s/step, the share
     of the loop spent waiting on the loader, the checkpoints' write and
     read times and sizes, val s/face and peak memory.  Returns the
-    launches of the phase."""
+    launches of the phase and the overlay (phase 11 trains on its data)."""
     import yaml
 
     from sr3d_torch.cli.main import main as cli_main
@@ -1791,7 +1806,422 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float) -> dict:
     print(f"    files of the JAX Trainer present; losses finite; launches "
           f"{counts}")
     print(f"    {smi_line()}")
-    return counts
+    return counts, overlay
+
+
+def _unet_launches(unet, remat: bool) -> tuple[int, int]:
+    """GN+Swish and attention launches of one train step of ``unet``: one
+    per module forward; under remat the checkpointed blocks' (all but
+    ``final_conv``'s GN) once more in the backward."""
+    from sr3d_torch.models.sr3_unet import GroupNormSwish, SelfAttention
+
+    gn = [n for n, m in unet.named_modules() if isinstance(m, GroupNormSwish)]
+    attn = sum(isinstance(m, SelfAttention) for m in unet.modules())
+    again = remat * sum(not n.startswith("final_conv") for n in gn)
+    return len(gn) + again, attn * (1 + remat)
+
+
+def _want(gn: int, attn: int) -> dict:
+    return {"gn_stats": 0, "gn_swish": gn, "spatial_attention": attn,
+            "conv3x3": 0, "fused_gn_swish_conv3x3": 0, "int8_conv": 0}
+
+
+def _jsonl(path: Path, tag: str) -> list[tuple[int, float]]:
+    return [(r["step"], r["value"]) for r in map(
+        json.loads, path.read_text().splitlines()) if r["tag"] == tag]
+
+
+def _cli_timed(cli_main, argv: list[str]) -> tuple[dict, float, float]:
+    """One CLI call: its kernel launches, wall seconds and peak device
+    memory (GiB)."""
+    import gc
+
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    require(cli_main(argv) == 0, f"cli main {argv}")
+    torch.cuda.synchronize()
+    return (launch_counts(), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _profiled_sr_step(m, dev, hi: int) -> tuple[tuple, tuple]:
+    """Two warm-up SR-only steps of ``m`` at B = 2, one timed, one under
+    ``torch.profiler``: ((wall s, device busy % of it), (GN+Swish backward
+    calls, host ms, % of the profiled step))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sr3d_torch.profile_serving import _device_us
+
+    st = m.init_state()
+    step = m.make_train_step()
+    rng = np.random.RandomState(5)
+    b = {k: torch.from_numpy(rng.uniform(-1, 1, (2, hi, hi, 3))
+                             .astype(np.float32)).to(dev)
+         for k in ("HR", "SR")}
+    g = torch.Generator(device=dev)
+
+    def one(i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(st, b, generator=g.manual_seed(i))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    one(0), one(1)
+    wall = one(2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_prof = one(3)
+    ranges = ("gn_swish.backward", "spatial_attention.backward")
+    ev = prof.key_averages()
+    kernel_us = sum(_device_us(e) for e in ev
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.key not in ranges)
+    gb = [e for e in ev if e.key == "gn_swish.backward"
+          and e.device_type == torch.autograd.DeviceType.CPU]
+    require(gb, "no gn_swish.backward range in the profile")
+    host_ms = float(gb[0].cpu_time_total) / 1e3
+    return ((wall, 100 * kernel_us / 1e6 / wall),
+            (gb[0].count, host_ms, 100 * host_ms / 1e3 / t_prof))
+
+
+def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
+    """The staged workflow's branch trainers at the flagship config's full
+    width, on phase 10's overlay (its joint root, FLAME files, DDIM-25
+    hand-off):
+
+    (a) SR-only pretraining through ``cli.main --sr-only`` on an LR/HR
+        image root (8 faces, 16 → 128) at the config's batch of 2: 4 steps
+        with a pair at step 4, then a call that resumes to step 6;
+    (b) the hand-over: the joint Trainer warm-started from (a)'s step-6
+        pair (``sr.pretrained_model_path``), 2 steps;
+    (c) the DDPM family (``which_model_G: ddpm``): 2 ``SRModel`` steps at
+        B = 2, then a DDIM-25 request of 8;
+    (d) MICA-only: ``MicaTrainer.fit`` 4 steps (2 actors × K 2) with the
+        ``Validator`` every 2, then a resume to step 6;
+    (e) the alternating trainer through ``cli.main --legacy``: 3 steps
+        with the DDIM-25 sampler, then a resumed call of one step with the
+        config's own ancestral T = 600 loop.
+
+    Checks the files, counters, finite losses, moved parameters and every
+    call's launches against a count from the UNet's modules; prints
+    s/step, peak memory, the pairs' sizes and write / read times, and for
+    one SR-only step under ``torch.profiler`` the device's busy share and
+    the GN+Swish backward's host share.  Returns the launches of (a) and
+    of (e)."""
+    import copy
+    import gc
+
+    import yaml
+
+    from sr3d_torch import data as data_lib
+    from sr3d_torch.cli.main import main as cli_main
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    from sr3d_torch.data.synthetic import generate_synthetic_faces
+    from sr3d_torch.eval.validator import Validator
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.train import mica_only
+    from sr3d_torch.train.checkpoint import (
+        jax_tree_flatten,
+        npz_leaves,
+        optimizer_tree,
+        sr_layout,
+    )
+    from sr3d_torch.train.joint import build_joint
+    from sr3d_torch.train.sr_only import SRModel
+    from sr3d_torch.train.trainer import Trainer
+    from sr3d_torch.utils.bridge import state_dict_to_flax
+
+    t_phase = time.perf_counter()
+    root = tmp / "staged"
+    root.mkdir()
+    with open(joint_overlay) as f:
+        base = yaml.safe_load(f)
+
+    def overlay(name: str, over: dict) -> Path:
+        path = root / f"{name}.yml"
+        path.write_text(yaml.safe_dump(_merge(copy.deepcopy(base), _merge(
+            {"name": name, "output_dir": str(root / "out")}, over))))
+        return path
+
+    def cfg_of(path: Path):
+        return update_cfg(get_cfg_defaults(), str(path))
+
+    def unet_leaves(unet) -> list:
+        return jax_tree_flatten({"params": state_dict_to_flax(dict(
+            unet.named_parameters()))})[0]
+
+    # (a) SR-only pretraining through the CLI
+    p_sr = overlay("sr_only_smoke", {
+        "sr": {"datasets": {"train": {"dataroot": str(root / "lrhr")}}},
+        "train": {"checkpoint_steps": 4, "log_steps": 1}})
+    cfg = cfg_of(p_sr)
+    require(int(cfg.sr.datasets.train.batch_size) == 2
+            and bool(cfg.tpu.train_remat), "the flagship's SR batch / remat")
+    lo, hi = (int(cfg.sr.datasets.train.l_resolution),
+              int(cfg.sr.datasets.train.r_resolution))
+    T = int(cfg.sr.model.beta_schedule.val.n_timestep)
+    S = min(25, T)                # the DDIM steps
+    generate_synthetic_faces(root / "lrhr", n=8, l_res=lo, r_res=hi, seed=2)
+    calls = {}
+    for tag, steps in (("4 steps", "4"), ("resume +2", "2")):
+        calls[tag] = _cli_timed(cli_main, ["--sr-only", "-c", str(p_sr),
+                                           "--max-steps", steps])
+    out = root / "out" / "sr_only_smoke"
+    ck = out / "checkpoint_sr"
+    names = sorted(p.name for p in ck.glob("*.npz"))
+    require(names == ["I4_E1_gen.npz", "I4_E1_opt.npz", "I6_E1_gen.npz",
+                      "I6_E1_opt.npz"], f"SR-only pairs {names}")
+    with np.load(ck / "I6_E1_opt.npz") as d:
+        require((int(d["iter"]), int(d["epoch"]), int(d["leaf_0"]))
+                == (6, 1, 6), "SR-only counters (iter, epoch, Adam count)")
+    fresh = SRModel(cfg, device=dev)
+    n_gn, n_attn = _unet_launches(fresh.unet, True)       # a train step
+    fwd_gn, fwd_attn = _unet_launches(fresh.unet, False)  # a sampling step
+    for tag, n in (("4 steps", 4), ("resume +2", 2)):
+        require(calls[tag][0] == _want(n * n_gn, n * n_attn),
+                f"SR-only {tag} launches {calls[tag][0]}, want {n} x "
+                f"({n_gn}, {n_attn})")
+    init = unet_leaves(fresh.unet)
+    busy, gn_bwd = _profiled_sr_step(fresh, dev, hi)
+    del fresh
+    g4, g6 = npz_leaves(ck / "I4_E1_gen.npz"), npz_leaves(ck / "I6_E1_gen.npz")
+    moved = lambda a, b: sum(not np.array_equal(x, y) for x, y in zip(a, b))
+    require(moved(init, g4) == len(init) and moved(g4, g6) > 0,
+            f"SR-only parameters moved: {moved(init, g4)} of {len(init)} "
+            f"leaves by step 4, {moved(g4, g6)} between 4 and 6")
+    logs = out / "logs" / "metrics.jsonl"
+    l_pix = _jsonl(logs, "train/l_pix")
+    require([s for s, _ in l_pix] == [1, 2, 3, 4, 5, 6]
+            and all(math.isfinite(v) for _, v in l_pix),
+            f"SR-only l_pix {l_pix}")
+    per = dict(_jsonl(logs, "train/sec_per_it"))
+    writes = _jsonl(logs, "perf/ckpt_write_s")
+    mib = _jsonl(logs, "perf/ckpt_write_mib")
+    reads = _jsonl(logs, "perf/ckpt_read_s")
+    sr_counts = {k: calls["4 steps"][0][k] + calls["resume +2"][0][k]
+                 for k in calls["4 steps"][0]}
+    print(f"[11] staged workflow, full width ({CONFIG.name})")
+    print(f"  (a) --sr-only, LR/HR root of 8 faces {lo}->{hi}, batch 2, remat: "
+          f"4 steps {calls['4 steps'][1]:.1f} s, resume to 6 "
+          f"{calls['resume +2'][1]:.1f} s (each builds its model); s/step "
+          f"{', '.join(f'{per[i]:.3f}' for i in range(1, 7))} (steps 1-6; "
+          f"1 and 5 first of a call); peak {calls['4 steps'][2]:.2f} / "
+          f"{calls['resume +2'][2]:.2f} GiB")
+    print(f"      pair {mib[0][1]:.0f} MiB, written in "
+          f"{', '.join(f'{v:.2f}' for _, v in writes)} s, read in "
+          f"{reads[0][1]:.2f} s; l_pix {l_pix[0][1]:.4f} -> "
+          f"{l_pix[-1][1]:.4f}; launches {n_gn} GN+Swish, {n_attn} "
+          f"attention a step ({fwd_gn} + {n_gn - fwd_gn} recomputed; "
+          f"{fwd_attn} + {n_attn - fwd_attn}): {sr_counts}")
+    print(f"      one step (B = 2) under torch.profiler: {busy[0]:.3f} s "
+          f"wall, the device busy {busy[1]:.1f}% of it; GN+Swish backward "
+          f"(autograd of its plain version) {gn_bwd[0]} calls, host "
+          f"{gn_bwd[1]:.1f} ms = {gn_bwd[2]:.1f}% of the profiled step")
+
+    # (b) the hand-over to the joint Trainer
+    prefix = str(ck / "I6_E1")
+    p_b = overlay("handover_smoke", {
+        "sr": {"pretrained_model_path": prefix},
+        "mica": {"train": {"eval_steps": 0}},
+        "train": {"checkpoint_steps": 0, "eval_steps": 0, "vis_steps": 0,
+                  "log_steps": 1}})
+    tr = Trainer(cfg_of(p_b), device=dev)
+    tr.prepare_data()
+    t0 = time.perf_counter()
+    require(tr.load_sr_pretrained(prefix), "load_sr_pretrained")
+    t_load = time.perf_counter() - t0
+    require(all(np.array_equal(a, b) for a, b in
+                zip(unet_leaves(tr.modules.unet), g6, strict=True)),
+            "the joint UNet differs from the pair's weights")
+    moments = jax_tree_flatten(optimizer_tree(
+        sr_layout(tr.modules.unet), tr.state, accum=1))[0]
+    require(all(np.array_equal(a, b) for a, b in zip(
+        moments, npz_leaves(ck / "I6_E1_opt.npz"), strict=True)),
+        "the sr group's Adam state differs from the pair's")
+    require((tr.global_step, tr.epoch) == (6, 1),
+            f"hand-over counters {(tr.global_step, tr.epoch)}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.training_step(max_steps=2)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    b_counts = launch_counts()
+    tr.metrics_writer.close()
+    b_out = root / "out" / "handover_smoke"
+    require(tr.global_step == 8 and (b_out / "checkpoint" /
+                                     "ckpt_0000000008.npz").exists(),
+            f"hand-over: step {tr.global_step}")
+    require(b_counts == _want(2 * (n_gn + S * fwd_gn),
+                              2 * (n_attn + S * fwd_attn)),
+            f"hand-over launches {b_counts}")
+    del tr
+    print(f"  (b) the joint Trainer from the step-6 pair: UNet bit-equal, "
+          f"Adam moments and count transferred, counters (6, 1), pair read "
+          f"in {t_load:.2f} s; 2 steps (DDIM-25 hand-off) + checkpoint "
+          f"{t_b:.1f} s, global step 8; launches {b_counts}")
+
+    # (c) the DDPM family
+    cfg_c = cfg_of(p_sr)
+    cfg_c.sr.model.which_model_G = "ddpm"
+    d = cfg_c.sr.model.diffusion
+    d.sampler, d.ddim_steps, d.ddim_eta, d.sampler_init = \
+        "ddim", 25, 1.0, "marginal"
+    m = SRModel(cfg_c, device=dev, init_seed=0)
+    require(m.time_input == "t" and type(m.unet).__name__ == "DDPMUNet",
+            "which_model_G: ddpm")
+    st = m.init_state()
+    n_params = sum(p.numel() for p in m.unet.parameters()) / 1e6
+    step = m.make_train_step()
+    g = torch.Generator(device=dev)
+    rng = np.random.RandomState(4)
+    hr = rng.uniform(-1, 1, (2, hi, hi, 3)).astype(np.float32)
+    batch = {"HR": torch.from_numpy(hr).to(dev),
+             "SR": torch.from_numpy(hr[:, :, ::-1].copy()).to(dev)}
+    before = m.unet.conv_in.weight.detach().clone()
+    reset_launch_counts()
+    times, losses = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = step(st, batch, generator=g.manual_seed(i))
+        losses.append(float(met["l_pix"]))
+        times.append(time.perf_counter() - t0)
+    c_train = launch_counts()
+    d_gn, d_attn = _unet_launches(m.unet, True)
+    require(c_train == _want(2 * d_gn, 2 * d_attn),
+            f"DDPM steps' launches {c_train}")
+    require(all(math.isfinite(v) for v in losses)
+            and not torch.equal(before, m.unet.conv_in.weight),
+            f"DDPM steps: l_pix {losses}, parameters moved")
+    cond = torch.from_numpy(rng.uniform(-1, 1, (8, hi, hi, 3))
+                            .astype(np.float32))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sr = m.make_sampler()(st, cond, generator=g.manual_seed(9))
+    torch.cuda.synchronize()
+    t_sample = time.perf_counter() - t0
+    c_sample = launch_counts()
+    d_gn, d_attn = _unet_launches(m.unet, False)
+    require(c_sample == _want(S * d_gn, S * d_attn),
+            f"DDPM DDIM-25 launches {c_sample}")
+    require(tuple(sr.shape) == (8, hi, hi, 3)
+            and bool(torch.isfinite(sr).all())
+            and float(sr.abs().max()) <= 1.0,
+            f"DDPM samples: {tuple(sr.shape)}, max |x| "
+            f"{float(sr.abs().max())}")
+    del m, st, step
+    print(f"  (c) DDPM family ({n_params:.1f}M, integer t): 2 steps at B = 2 "
+          f"{times[0]:.3f}, {times[1]:.3f} s, l_pix {losses[0]:.4f}, "
+          f"{losses[1]:.4f}; DDIM-25 request of 8 {t_sample * 1e3:.1f} ms, "
+          f"samples finite in [-1, 1]; launches {c_train} / {c_sample}")
+
+    # (d) MICA-only
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_d = cfg_of(overlay("mica_smoke", {}))
+    mods = build_joint(cfg_d, device=dev, init_seed=0)
+    loader = data_lib.BatchLoader(
+        data_lib.build_train(cfg_d),
+        batch_size=int(cfg_d.mica.datasets.batch_size), shuffle=True,
+        seed=0, num_workers=int(cfg_d.mica.datasets.num_workers))
+    val = Validator(mods, mica_only.make_mica_predict(),
+                    {"SYNTH": data_lib.build_val(cfg_d)})
+    results = []
+    run = val.run
+    val.run = lambda state: results.append(run(state)) or results[-1]
+    mica_dir = root / "mica"
+    step_s: list[float] = []
+
+    def timed(step_fn):
+        def wrapped(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = step_fn(*a)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return r
+        return wrapped
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mt = mica_only.MicaTrainer(cfg_d, mods, validator=val,
+                               output_dir=mica_dir)
+    mt._step = timed(mt._step)
+    mt.fit(loader, max_steps=4, val_steps=2, checkpoint_steps=2,
+           log_steps=1, vis_steps=4, snapshot_steps=0, eval_steps=0)
+    t_fit = time.perf_counter() - t0
+    peak_d = torch.cuda.max_memory_allocated() / 2 ** 30
+    mt2 = mica_only.MicaTrainer(cfg_d, mods, output_dir=mica_dir)
+    mt2._step = timed(mt2._step)
+    mt2.fit(loader, max_steps=6, val_steps=0, checkpoint_steps=0,
+            log_steps=1, vis_steps=0, snapshot_steps=0, eval_steps=0)
+    leaves = npz_leaves(mica_dir / "model_mica.npz")
+    require(mt.global_step == 4 and mt2.global_step == 6
+            and int(leaves[1]) == 6 and int(leaves[2]) == 6,
+            f"MICA-only steps {mt.global_step}, {mt2.global_step}; file "
+            f"{int(leaves[1])}, {int(leaves[2])}")
+    want = [mica_dir / "train_images" / f"train_{mt.epoch}.jpg",
+            mica_dir / "best_models" / "best_model_3.npz"]
+    require(all(p.exists() for p in want) and len(results) == 2
+            and all(math.isfinite(r["loss"]) and r["embeddings"].shape[1]
+                    == 512 for r in results),
+            f"MICA-only vis / best model / val: {[p.exists() for p in want]}"
+            f", {[r['loss'] for r in results]}")
+    print(f"  (d) MicaTrainer: 4 steps (N = 4) with val at 2, 4, vis, "
+          f"checkpoints: {t_fit:.1f} s; resume to 6; s/step "
+          f"{', '.join(f'{v:.3f}' for v in step_s)} (steps 1-6); val loss "
+          f"{results[0]['loss']:.3f}, {results[1]['loss']:.3f}; "
+          f"model_mica.npz "
+          f"{(mica_dir / 'model_mica.npz').stat().st_size / 2 ** 20:.0f} "
+          f"MiB; train_{mt.epoch}.jpg, best_model_3.npz written; peak "
+          f"{peak_d:.2f} GiB (the joint modules, UNet included)")
+    del mods, mt, mt2, val, run, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the alternating trainer through the CLI
+    calls = {}
+    for tag, sampler, steps in (("DDIM-25, 3 steps", "ddim", "3"),
+                                ("T=600, resume +1", "ddpm", "1")):
+        p_e = overlay("legacy_smoke", {
+            "sr": {"model": {"diffusion": {"sampler": sampler}}},
+            "train": {"checkpoint_steps": 1000}})
+        calls[tag] = _cli_timed(cli_main, ["--legacy", "-c", str(p_e),
+                                           "--max-steps", steps])
+    e_out = root / "out" / "legacy_smoke"
+    names = sorted(p.name for p in (e_out / "checkpoint_sr").glob("*.npz"))
+    require(names == ["I3_E0_gen.npz", "I3_E0_opt.npz", "I4_E0_gen.npz",
+                      "I4_E0_opt.npz"]
+            and int(npz_leaves(e_out / "model_mica.npz")[0]) == 4,
+            f"legacy files {names}")
+    logs = e_out / "logs" / "metrics.jsonl"
+    per = dict(_jsonl(logs, "train/sec_per_it"))
+    for tag in ("train/l_pix", "train/l_mica"):
+        v = _jsonl(logs, tag)
+        require([s for s, _ in v] == [1, 2, 3, 4]
+                and all(math.isfinite(x) for _, x in v), f"legacy {tag} {v}")
+    for tag, (n, k) in (("DDIM-25, 3 steps", (3, S)),
+                        ("T=600, resume +1", (1, T))):
+        require(calls[tag][0] == _want(n * (n_gn + k * fwd_gn),
+                                       n * (n_attn + k * fwd_attn)),
+                f"legacy {tag} launches {calls[tag][0]}")
+    legacy = {k: sum(c[0][k] for c in calls.values())
+              for k in calls["DDIM-25, 3 steps"][0]}
+    c3, c1 = calls["DDIM-25, 3 steps"], calls["T=600, resume +1"]
+    print(f"  (e) --legacy (N = 4): DDIM-25 call {c3[1]:.1f} s, s/step "
+          f"{per[1]:.3f}, {per[2]:.3f}, {per[3]:.3f}; T=600 resumed call "
+          f"{c1[1]:.1f} s, its step {per[4]:.3f} s; peak {c3[2]:.2f} / "
+          f"{c1[2]:.2f} GiB; launches {legacy}")
+    print(f"    phase 11 in {time.perf_counter() - t_phase:.1f} s; "
+          f"{smi_line()}")
+    return {"sr_only": sr_counts, "legacy": legacy}
 
 
 def main() -> int:
@@ -1920,9 +2350,12 @@ def main() -> int:
         cli_counts, fwd_launches = phase_cli(dev, ckpt, Path(tmp))
     rec["int8_conv"]["forward_launches"] = fwd_launches
 
-    # 10. the joint Trainer through the training CLI
+    # 10. the joint Trainer through the training CLI; 11. the staged
+    # workflow's branch trainers on the same data
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        trainer_counts = phase_trainer(dev, flame, Path(tmp), bare_step_s)
+        trainer_counts, overlay = phase_trainer(dev, flame, Path(tmp),
+                                                bare_step_s)
+        staged = phase_staged(dev, Path(tmp), overlay)
 
     kernels = []
     meta = {
@@ -1951,6 +2384,8 @@ def main() -> int:
                         "train_launches": train_counts[name],
                         "model3_launches": model3_counts[name],
                         "trainer_launches": trainer_counts[name],
+                        "sr_only_launches": staged["sr_only"][name],
+                        "legacy_launches": staged["legacy"][name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

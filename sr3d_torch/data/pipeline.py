@@ -140,6 +140,18 @@ class BatchLoader:
                 yield from self._run(batches[n:])
 
 
+def flatten_actors(raw: dict, keys) -> dict:
+    """``keys`` of a joint batch as float32, actor-K ``[B, K, …]`` arrays
+    flattened to ``[B·K, …]`` (images 5-D, ``flame_shape`` 3-D)."""
+    out = {}
+    for key in keys:
+        v = np.asarray(raw[key], np.float32)
+        if v.ndim == 5 or (key == "flame_shape" and v.ndim == 3):
+            v = v.reshape((-1,) + v.shape[2:])
+        out[key] = v
+    return out
+
+
 def _is_array(x) -> bool:
     return isinstance(x, np.ndarray) and x.dtype != object
 

@@ -1,11 +1,12 @@
-"""Gaussian diffusion: the SR3 training loss and the samplers (ancestral,
-DDIM, DPM-Solver++), NCHW.
+"""Gaussian diffusion: the SR3 and DDPM training losses and the samplers
+(ancestral, DDIM, DPM-Solver++), NCHW.
 
 Counterpart of ``sr3d_tpu/diffusion/gaussian.py``: ``q_sample_gamma``,
-``sample_continuous_gamma`` and ``p_losses_continuous`` for training, and
-the samplers.  The training draws (t, γ, noise) come from a
-``torch.Generator`` or are passed in, so a test can replay the JAX
-package's ``split`` draws.
+``sample_continuous_gamma`` and ``p_losses_continuous`` for the SR3 family
+(continuous noise level γ), ``q_sample_discrete`` and ``p_losses_discrete``
+for the DDPM family (integer timestep t), and the samplers.  The training
+draws (t, γ, noise) come from a ``torch.Generator`` or are passed in, so a
+test can replay the JAX package's ``split`` draws.
 
 The loops are plain Python loops that call the UNet once per step; every
 step shares one timestep across the batch, so the schedule scalars are read
@@ -19,14 +20,16 @@ Noise comes either from a ``torch.Generator`` or from an explicit sequence
 ``init="noise"``), ``noise[1 + k]`` the draw of the k-th loop iteration.  A
 test replays the JAX package's noise through the second form.
 
-``denoise(x, time)`` takes the channel concat ``[condition, x_t]`` and the
-continuous noise level γ ``[B, 1]`` and returns the predicted noise.
+``denoise(x, time)`` takes the channel concat ``[condition, x_t]`` and
+returns the predicted noise; ``time`` is the continuous noise level γ
+``[B, 1]`` (``time_input="gamma"``, the SR3 UNet) or the integer timestep
+``[B]`` (``time_input="t"``, the DDPM UNet).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, Sequence
+from typing import Callable, Iterator, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +48,19 @@ def q_sample_gamma(x_start: torch.Tensor, gamma: torch.Tensor,
     with B elements) and broadcasts over the other dims."""
     gamma = gamma.reshape(gamma.shape[0], *([1] * (x_start.dim() - 1)))
     return gamma * x_start + torch.sqrt(1.0 - gamma ** 2) * noise
+
+
+def q_sample_discrete(x_start: torch.Tensor, t: torch.Tensor,
+                      sched: DiffusionSchedule, noise: torch.Tensor
+                      ) -> torch.Tensor:
+    """Discrete-t forward diffusion (DDPM):
+    ``x_t = √ᾱ_t·x₀ + √(1 − ᾱ_t)·ε``, ``t`` an integer ``[B]``."""
+    shape = (t.shape[0],) + (1,) * (x_start.dim() - 1)
+    idx = t.to(torch.long).cpu()
+    sa = torch.from_numpy(sched.sqrt_alphas_cumprod)[idx]
+    soma = torch.from_numpy(sched.sqrt_one_minus_alphas_cumprod)[idx]
+    return (sa.to(x_start.device).reshape(shape) * x_start
+            + soma.to(x_start.device).reshape(shape) * noise)
 
 
 def sample_continuous_gamma(sched: DiffusionSchedule, batch: int, *,
@@ -103,6 +119,35 @@ def p_losses_continuous(denoise: DenoiseFn, sched: DiffusionSchedule,
     raise ValueError(f"unknown loss_type {loss_type!r} (l1 | l2)")
 
 
+def p_losses_discrete(denoise: DenoiseFn, sched: DiffusionSchedule,
+                      hr: torch.Tensor, cond: torch.Tensor | None, *,
+                      generator: torch.Generator | None = None,
+                      t: torch.Tensor | None = None,
+                      noise: torch.Tensor | None = None,
+                      loss_type: str = "l1") -> torch.Tensor:
+    """DDPM discrete-t training loss, summed: ``t ~ U{0..T−1}`` per element,
+    then the noise; the UNet sees ``[cond, x_noisy]`` and the integer
+    ``t``.  ``t`` (``[B]``) and ``noise`` (``hr``'s shape) replace the
+    draws from ``generator``."""
+    b = hr.shape[0]
+    if t is None:
+        t = torch.randint(0, sched.num_timesteps, (b,), generator=generator,
+                          device=hr.device)
+    if noise is None:
+        noise = torch.randn(hr.shape, generator=generator, device=hr.device)
+    t = t.to(hr.device, torch.long)
+    noise = noise.to(hr.device, torch.float32)
+    x_noisy = q_sample_discrete(hr.float(), t, sched, noise)
+    net_in = x_noisy if cond is None else torch.cat([cond.float(), x_noisy],
+                                                    dim=1)
+    eps = denoise(net_in, t).float()
+    if loss_type == "l1":
+        return (noise - eps).abs().sum()
+    if loss_type == "l2":
+        return ((noise - eps) ** 2).sum()
+    raise ValueError(f"unknown loss_type {loss_type!r} (l1 | l2)")
+
+
 def predict_start_from_noise(sched: DiffusionSchedule, x_t: torch.Tensor,
                              t: int, noise: torch.Tensor) -> torch.Tensor:
     """x̂₀ = √(1/ᾱ_t)·x_t − √(1/ᾱ_t − 1)·ε̂."""
@@ -118,19 +163,28 @@ def q_posterior(sched: DiffusionSchedule, x_start: torch.Tensor,
     return mean, sched.posterior_log_variance_clipped[t]
 
 
-def _noise_level(sched: DiffusionSchedule, x: torch.Tensor, t: int
-                 ) -> torch.Tensor:
-    gamma = float(sched.sqrt_alphas_cumprod_prev[t + 1])
-    return torch.full((x.shape[0], 1), gamma, dtype=x.dtype, device=x.device)
+def _time(sched: DiffusionSchedule, x: torch.Tensor, t: int,
+          time_input: str) -> torch.Tensor:
+    """The UNet's time input at timestep ``t``: γ = √ᾱ_{t} of the shifted
+    table, ``[B, 1]`` (``"gamma"``), or ``t`` itself, ``[B]``
+    (``"t"``)."""
+    if time_input == "gamma":
+        gamma = float(sched.sqrt_alphas_cumprod_prev[t + 1])
+        return torch.full((x.shape[0], 1), gamma, dtype=x.dtype,
+                          device=x.device)
+    if time_input == "t":
+        return torch.full((x.shape[0],), t, dtype=torch.long,
+                          device=x.device)
+    raise ValueError(f"unknown time_input {time_input!r} (gamma | t)")
 
 
 def p_mean_variance(denoise: DenoiseFn, sched: DiffusionSchedule,
                     x: torch.Tensor, t: int, condition: torch.Tensor | None,
-                    clip_denoised: bool = True
+                    clip_denoised: bool = True, time_input: str = "gamma"
                     ) -> tuple[torch.Tensor, np.float32]:
     """One reverse step's mean and log-variance."""
     net_in = x if condition is None else torch.cat([condition, x], dim=1)
-    eps = denoise(net_in, _noise_level(sched, x, t))
+    eps = denoise(net_in, _time(sched, x, t, time_input))
     x_recon = predict_start_from_noise(sched, x, t, eps.float())
     if clip_denoised:
         x_recon = clip(x_recon, -1.0, 1.0)
@@ -194,35 +248,59 @@ def _run_steps(step: Callable[..., torch.Tensor], img: torch.Tensor,
     return img
 
 
+class SampleOutput(NamedTuple):
+    final: torch.Tensor          # x₀, the shape of x_in
+    intermediates: torch.Tensor  # [ceil(T / sample_inter), *x_in.shape]
+
+
 def p_sample_loop(denoise: DenoiseFn, sched: DiffusionSchedule,
                   x_in: torch.Tensor, *,
                   generator: torch.Generator | None = None,
                   noise: Sequence[torch.Tensor] | None = None,
                   conditional: bool = True, clip_denoised: bool = True,
                   init: str = "noise", differentiable: bool = False,
-                  remat: bool = True, remat_chunk: int = 1) -> torch.Tensor:
+                  remat: bool = True, remat_chunk: int = 1,
+                  time_input: str = "gamma",
+                  return_intermediates: bool = False
+                  ) -> torch.Tensor | SampleOutput:
     """The reference's full T-step ancestral loop.  ``x_in`` is the
     bicubic-upsampled conditioning (or, unconditional, only a shape).
 
     Without ``differentiable`` the loop runs under ``torch.no_grad()``.
     With it the loop stays on the autograd tape (model3's hand-off), each
     step checkpointed when ``remat``, or each run of ``remat_chunk`` steps
-    (which must divide T); the gradients are the same either way."""
+    (which must divide T); the gradients are the same either way.
+
+    ``return_intermediates`` returns ``SampleOutput(final,
+    intermediates)``, the reference's continuous trajectory: with
+    ``sample_inter = 1 | (T // 10)`` (a bitwise or), the state after the
+    step at t lands in slot ``t // sample_inter`` when ``t % sample_inter
+    == 0``, so slot 0 is the final image; ``ceil(T / sample_inter)``
+    frames."""
     T = sched.num_timesteps
     condition = x_in if conditional else None
     draw = _noise_stream(x_in.shape, x_in.device, generator, noise)
+    inter = 1 | (T // 10)
+    kept: dict[int, torch.Tensor] = {}
 
     def step(k: int, img: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         t = T - 1 - k
         mean, log_var = p_mean_variance(denoise, sched, img, t, condition,
-                                        clip_denoised)
-        return (mean + float(np.exp(np.float32(0.5) * log_var)) * z
-                if t > 0 else mean)
+                                        clip_denoised, time_input)
+        img = (mean + float(np.exp(np.float32(0.5) * log_var)) * z
+               if t > 0 else mean)
+        if return_intermediates and t % inter == 0:
+            kept[t // inter] = img   # a recompute rewrites the same slot
+        return img
 
     with contextlib.nullcontext() if differentiable else torch.no_grad():
         img = _sampler_init(sched, draw(), init, condition)
-        return _run_steps(step, img, T, draw, differentiable=differentiable,
-                          remat=remat, remat_chunk=remat_chunk, what="T")
+        img = _run_steps(step, img, T, draw, differentiable=differentiable,
+                         remat=remat, remat_chunk=remat_chunk, what="T")
+        if not return_intermediates:
+            return img
+        return SampleOutput(img, torch.stack(
+            [kept[i] for i in range(-(-T // inter))]))
 
 
 def _strided_taus(T: int, num_steps: int) -> np.ndarray:
@@ -232,13 +310,14 @@ def _strided_taus(T: int, num_steps: int) -> np.ndarray:
 
 
 def _make_x0_eps_pred(denoise: DenoiseFn, sched: DiffusionSchedule,
-                      condition: torch.Tensor | None, clip_denoised: bool):
+                      condition: torch.Tensor | None, clip_denoised: bool,
+                      time_input: str = "gamma"):
     """One UNet evaluation at timestep ``t`` → ``(x0, eps)``."""
 
     def x0_eps(img: torch.Tensor, t: int):
         net_in = (img if condition is None
                   else torch.cat([condition, img], dim=1))
-        eps = denoise(net_in, _noise_level(sched, img, t)).float()
+        eps = denoise(net_in, _time(sched, img, t, time_input)).float()
         x0 = predict_start_from_noise(sched, img, t, eps)
         if clip_denoised:
             x0 = clip(x0, -1.0, 1.0)
@@ -254,18 +333,19 @@ def ddim_sample_loop(denoise: DenoiseFn, sched: DiffusionSchedule,
                      noise: Sequence[torch.Tensor] | None = None,
                      conditional: bool = True, clip_denoised: bool = True,
                      init: str = "noise", differentiable: bool = False,
-                     remat: bool = True, remat_chunk: int = 1
-                     ) -> torch.Tensor:
+                     remat: bool = True, remat_chunk: int = 1,
+                     time_input: str = "gamma") -> torch.Tensor:
     """DDIM over a strided timestep subsequence: ``eta=0`` deterministic,
     ``eta=1`` ancestral-like variance.  The serving recipe is
     ``num_steps=25, eta=1, init="marginal"``.  ``differentiable``,
-    ``remat`` and ``remat_chunk`` (which must divide ``num_steps``) as in
-    :func:`p_sample_loop`."""
+    ``remat``, ``remat_chunk`` (which must divide ``num_steps``) and
+    ``time_input`` as in :func:`p_sample_loop`."""
     T = sched.num_timesteps
     num_steps = min(num_steps, T)
     condition = x_in if conditional else None
     taus = _strided_taus(T, num_steps)
-    x0_eps = _make_x0_eps_pred(denoise, sched, condition, clip_denoised)
+    x0_eps = _make_x0_eps_pred(denoise, sched, condition, clip_denoised,
+                               time_input)
     draw = _noise_stream(x_in.shape, x_in.device, generator, noise)
     ac = sched.alphas_cumprod
     one, eta32 = np.float32(1.0), np.float32(eta)
@@ -298,7 +378,8 @@ def dpmpp_sample_loop(denoise: DenoiseFn, sched: DiffusionSchedule,
                       generator: torch.Generator | None = None,
                       noise: Sequence[torch.Tensor] | None = None,
                       conditional: bool = True, clip_denoised: bool = True,
-                      init: str = "noise") -> torch.Tensor:
+                      init: str = "noise", time_input: str = "gamma"
+                      ) -> torch.Tensor:
     """DPM-Solver++(2M) over the strided subsequence: second-order
     multistep in the data-prediction form, first order at the first and
     the last update.  ``eta=0`` is the deterministic solver; ``eta>0`` the
@@ -306,12 +387,14 @@ def dpmpp_sample_loop(denoise: DenoiseFn, sched: DiffusionSchedule,
     ``σ_p·sqrt(1 − e^{-2ηh})·ε`` each step, one draw per loop iteration as
     the JAX package's ``fold_in`` stream; ``eta=0`` draws only x_T).  No
     gradient, as the JAX loop ends in ``stop_gradient``.  The step scalars
-    are float32, computed on the host as the JAX loop computes them."""
+    are float32, computed on the host as the JAX loop computes them.
+    ``time_input`` as in :func:`p_sample_loop`."""
     T = sched.num_timesteps
     num_steps = min(num_steps, T)
     condition = x_in if conditional else None
     taus = _strided_taus(T, num_steps)
-    x0_eps = _make_x0_eps_pred(denoise, sched, condition, clip_denoised)
+    x0_eps = _make_x0_eps_pred(denoise, sched, condition, clip_denoised,
+                               time_input)
     draw = _noise_stream(x_in.shape, x_in.device, generator, noise)
     img = _sampler_init(sched, draw(), init, condition)
     f32 = np.float32

@@ -52,6 +52,7 @@ drawn outside the checkpointed call: the recompute draws the same mask.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -211,11 +212,15 @@ class SelfAttention(nn.Module):
 
 
 class ResnetBlocWithAttn(nn.Module):
+    """A ResnetBlock (``resnet``: the SR3 family's, or the DDPM family's
+    ``DDPMResnetBlock``) and, ``with_attn``, self-attention after it."""
+
     def __init__(self, dim_in: int, dim_out: int, time_dim: int, groups: int,
-                 with_attn: bool, dtype: torch.dtype, dropout: float = 0.0):
+                 with_attn: bool, dtype: torch.dtype, dropout: float = 0.0,
+                 resnet: type[nn.Module] = ResnetBlock):
         super().__init__()
-        self.res_block = ResnetBlock(dim_in, dim_out, time_dim, groups, dtype,
-                                     dropout)
+        self.res_block = resnet(dim_in, dim_out, time_dim, groups, dtype,
+                                dropout)
         self.attn = (SelfAttention(dim_out, groups, dtype) if with_attn
                      else None)
 
@@ -260,7 +265,18 @@ class Upsample(nn.Module):
 class SR3UNet(nn.Module):
     """``forward(x, time)``: ``x`` is NCHW with ``in_channel`` channels (the
     conditional concat [upsampled LR, x_t]), ``time`` the continuous noise
-    level γ of shape [B, 1].  Returns NCHW noise in ``x``'s dtype."""
+    level γ of shape [B, 1].  Returns NCHW noise in ``x``'s dtype.
+
+    The DDPM family (``models/ddpm_unet.py``) is this topology with another
+    time embedding (``time_name``, ``time_embedding``) and another
+    ResnetBlock (``resnet``)."""
+
+    time_name = "noise_level_mlp"
+    resnet: type[nn.Module] = ResnetBlock
+
+    @staticmethod
+    def time_embedding(dim: int, dtype: torch.dtype) -> nn.Module:
+        return NoiseLevelMLP(dim, dtype)
 
     def __init__(self, in_channel: int = 6, out_channel: int = 3,
                  inner_channel: int = 64, norm_groups: int = 32,
@@ -276,7 +292,9 @@ class SR3UNet(nn.Module):
         self.dtype = dtype
         self.dropout, self.remat = dropout, remat
         g, inner = norm_groups, inner_channel
-        self.noise_level_mlp = NoiseLevelMLP(inner, dtype)
+        self.add_module(self.time_name, self.time_embedding(inner, dtype))
+        block = functools.partial(ResnetBlocWithAttn, dtype=dtype,
+                                  dropout=dropout, resnet=self.resnet)
         self.conv_in = Conv2d(in_channel, inner, 3, padding=1,
                               compute_dtype=dtype)
 
@@ -292,8 +310,8 @@ class SR3UNet(nn.Module):
             use_attn = now_res in attn_res
             out = inner * channel_mults[ind]
             for b in range(res_blocks):
-                self._add("down", f"down_{ind}_{b}", ResnetBlocWithAttn(
-                    ch, out, inner, g, use_attn, dtype, dropout))
+                self._add("down", f"down_{ind}_{b}",
+                          block(ch, out, inner, g, use_attn))
                 ch = out
                 feats.append(ch)
             if ind != n - 1:
@@ -301,17 +319,14 @@ class SR3UNet(nn.Module):
                           Downsample(ch, dtype))
                 feats.append(ch)
                 now_res //= 2
-        self._add("mid", "mid_0",
-                  ResnetBlocWithAttn(ch, ch, inner, g, True, dtype, dropout))
-        self._add("mid", "mid_1",
-                  ResnetBlocWithAttn(ch, ch, inner, g, False, dtype, dropout))
+        self._add("mid", "mid_0", block(ch, ch, inner, g, True))
+        self._add("mid", "mid_1", block(ch, ch, inner, g, False))
         for ind in reversed(range(n)):
             use_attn = now_res in attn_res
             out = inner * channel_mults[ind]
             for b in range(res_blocks + 1):
-                self._add("up", f"up_{ind}_{b}", ResnetBlocWithAttn(
-                    ch + feats.pop(), out, inner, g, use_attn, dtype,
-                    dropout))
+                self._add("up", f"up_{ind}_{b}",
+                          block(ch + feats.pop(), out, inner, g, use_attn))
                 ch = out
             if ind != 0:
                 self._add("upsample", f"upsample_{ind}", Upsample(ch, dtype))
@@ -359,7 +374,7 @@ class SR3UNet(nn.Module):
             seeds = dict(zip(blocks, torch.randint(
                 0, 2 ** 62, (len(blocks),), generator=generator,
                 device=generator.device).tolist()))
-        t = self.noise_level_mlp(time)
+        t = getattr(self, self.time_name)(time)
         h = self.conv_in(x.to(self.dtype))
         feats = [h]
         for kind, name in self.plan:
@@ -382,10 +397,12 @@ class SR3UNet(nn.Module):
 
 def unet_from_config(unet_cfg, diffusion_cfg, *,
                      dtype: torch.dtype = torch.bfloat16,
-                     remat: bool = False) -> SR3UNet:
-    """Build from ``cfg.sr.model.unet`` + ``cfg.sr.model.diffusion``;
-    ``remat`` is ``cfg.tpu.train_remat``."""
-    return SR3UNet(
+                     remat: bool = False,
+                     cls: type[SR3UNet] = SR3UNet) -> SR3UNet:
+    """Build ``cls`` (the SR3 UNet, or the DDPM one: ``models/networks.py::
+    define_g`` picks it from ``which_model_G``) from ``cfg.sr.model.unet``
+    + ``cfg.sr.model.diffusion``; ``remat`` is ``cfg.tpu.train_remat``."""
+    return cls(
         in_channel=int(unet_cfg["in_channel"]),
         out_channel=int(unet_cfg["out_channel"]),
         inner_channel=int(unet_cfg["inner_channel"]),

@@ -26,11 +26,15 @@ learning-rate schedule's count, ``set_to_zero`` (``frozen``) nothing; at
 ``grad_accum`` k > 1 ``MultiSteps`` wraps it as ``(mini_step,
 gradient_step, inner state, acc_grads)``, ``acc_grads`` the running mean
 of the gradients over the whole parameter tree.  ``optimizer_tree`` builds
-that tree from the port's ``AdamW`` (its groups ``sr``, ``arcface``,
-``mapping``; ``step``, ``exp_avg``, ``exp_avg_sq`` per parameter; the
-accumulated mean in ``.grad`` between micro-steps) through the weight
-bridge's names and transposes, and ``load_optimizer_tree`` puts one back,
-so ``save_train_state`` writes files that the JAX package's
+that tree from a port optimizer whose param groups carry the labels
+(``step``, ``exp_avg``, ``exp_avg_sq`` per parameter; the accumulated mean
+in ``.grad`` between micro-steps) through the weight bridge's names and
+transposes, and ``load_optimizer_tree`` puts one back; an ``OptLayout``
+says which labels and networks a tree has: ``joint_layout`` (the above),
+``mica_layout`` (the MICA-only trainer's: without ``sr``) and
+``sr_layout`` (SR-only training's plain ``optax.adam``, or its
+``finetune_norm`` ``multi_transform`` with the label ``train``).  So
+``save_train_state`` writes files that the JAX package's
 ``load_state_npz`` and ``CheckpointManager`` read, and ``load_train_state``
 resumes from the JAX package's own.  The frozen ArcFace prefix has no
 gradient in the port: its ``acc_grads`` are written as zeros (its update
@@ -44,6 +48,7 @@ JAX's: the port reads and writes the ``.npz`` layouts only.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from pathlib import Path
 from typing import Any, Mapping
@@ -203,31 +208,78 @@ def npz_step_path(directory: str | os.PathLike, step: int) -> Path:
 # the optimizer state in optax's layout, and whole train states
 # --------------------------------------------------------------------------
 
-LABELS = ("arcface", "mapping", "sr")          # the labels with leaves
-SCHEDULED = ("arcface", "mapping")              # adamw + StepLR schedule
+@dataclasses.dataclass(frozen=True)
+class OptLayout:
+    """Where an optax opt_state's leaves come from in a port optimizer.
+
+    ``nets``: the networks of the parameter tree by its top-level key (one
+    network: the tree is that network's own, as SR-only training's UNet
+    variables); ``labels``: each param group (its ``name``) that has
+    leaves, and the key in ``nets`` of its parameters, in optax's label
+    order (sorted; the frozen label holds no leaf); ``scheduled``: the
+    labels whose transformation is ``adamw`` over a learning-rate schedule
+    (a count after the Adam state); ``multi``: an ``optax.multi_transform``
+    (False: one plain ``optax.adam``, a single label).  ``grad_accum`` > 1
+    wraps it in ``MultiSteps``."""
+
+    nets: Mapping[str, torch.nn.Module]
+    labels: Mapping[str, str]
+    scheduled: tuple[str, ...] = ()
+    multi: bool = True
+
+    @property
+    def device(self) -> torch.device:
+        return next(next(iter(self.nets.values())).parameters()).device
 
 
-def _networks(modules) -> dict[str, torch.nn.Module]:
-    return {"arcface": modules.arcface, "mapping": modules.mapping,
-            "sr": modules.unet}
+def joint_layout(modules) -> OptLayout:
+    """The joint optimizer's (``train.joint.make_optimizer``): labels
+    ``arcface``, ``mapping`` (adamw + StepLR), ``sr`` (adam), ``frozen``."""
+    return OptLayout(nets={"arcface": modules.arcface,
+                           "mapping": modules.mapping, "sr": modules.unet},
+                     labels={"arcface": "arcface", "mapping": "mapping",
+                             "sr": "sr"},
+                     scheduled=("arcface", "mapping"))
 
 
-def _wrap(label: str, tree: dict) -> dict:
+def mica_layout(modules) -> OptLayout:
+    """The MICA-only optimizer's (``train.mica_only.make_mica_optimizer``):
+    the joint's without ``sr``."""
+    return OptLayout(nets={"arcface": modules.arcface,
+                           "mapping": modules.mapping},
+                     labels={"arcface": "arcface", "mapping": "mapping"},
+                     scheduled=("arcface", "mapping"))
+
+
+def sr_layout(unet: torch.nn.Module, finetune_norm: bool = False
+              ) -> OptLayout:
+    """SR-only training's: ``optax.adam`` over the UNet (its param group
+    ``sr``), or under ``finetune_norm`` a ``multi_transform`` whose label
+    ``train`` holds the attention parameters alone."""
+    if finetune_norm:
+        return OptLayout(nets={"sr": unet}, labels={"train": "sr"})
+    return OptLayout(nets={"sr": unet}, labels={"sr": "sr"}, multi=False)
+
+
+def _wrap(key: str, tree: dict) -> dict:
     """The UNet's and the mapping network's flax trees sit under
     ``params``; ArcFace's parameters do not."""
-    return tree if label == "arcface" else {"params": tree}
+    return tree if key == "arcface" else {"params": tree}
 
 
-def _group_names(opt: torch.optim.Optimizer, modules
+def _group_names(opt: torch.optim.Optimizer, layout: OptLayout
                  ) -> dict[str, list[tuple[str, torch.nn.Parameter]]]:
     """Each param group's parameters by module name, in the module's
-    order."""
-    nets = _networks(modules)
+    order, for the groups ``layout`` labels (a layout of the ``sr`` group
+    alone reads a joint optimizer's)."""
     out = {}
     for g in opt.param_groups:
+        if g["name"] not in layout.labels:
+            continue
         ids = {id(p) for p in g["params"]}
-        out[g["name"]] = [(n, p) for n, p in nets[g["name"]]
-                          .named_parameters() if id(p) in ids]
+        net = layout.nets[layout.labels[g["name"]]]
+        out[g["name"]] = [(n, p) for n, p in net.named_parameters()
+                          if id(p) in ids]
     return out
 
 
@@ -236,63 +288,71 @@ def _group_count(opt: torch.optim.Optimizer, name: str) -> int:
                 if g["name"] == name)
 
 
-def optimizer_tree(modules, state) -> Any:
-    """The port's optimizer state (``state``: a
-    ``train.joint.JointTrainState``) as optax's opt_state tree of numpy
-    arrays (plain tuples in place of the NamedTuples: the same leaves in
-    the same order)."""
+def optimizer_tree(layout: OptLayout, state, accum: int | None = None
+                   ) -> Any:
+    """The port's optimizer state (``state.opt``; ``state.grad_accum`` and
+    ``state.mini_step`` where it has them) as the optax opt_state tree of
+    ``layout``, of numpy arrays (plain tuples in place of the
+    NamedTuples: the same leaves in the same order).  ``accum`` overrides
+    ``state.grad_accum``."""
     opt = state.opt
-    named = _group_names(opt, modules)
+    named = _group_names(opt, layout)
     inner = {}
-    for label in LABELS:
-        params = named[label]
+    for label in sorted(layout.labels):
+        key = layout.labels[label]
         mu, nu = {}, {}
-        for n, p in params:
+        for n, p in named[label]:
             st = opt.state.get(p, {})
             mu[n] = st.get("exp_avg", torch.zeros_like(p))
             nu[n] = st.get("exp_avg_sq", torch.zeros_like(p))
         count = np.asarray(_group_count(opt, label), np.int32)
-        adam = (count, _wrap(label, state_dict_to_flax(mu)),
-                _wrap(label, state_dict_to_flax(nu)))
-        inner[label] = ((adam, (), (count,)) if label in SCHEDULED
+        adam = (count, _wrap(key, state_dict_to_flax(mu)),
+                _wrap(key, state_dict_to_flax(nu)))
+        inner[label] = ((adam, (), (count,)) if label in layout.scheduled
                         else (adam, ()))
-    k = int(state.grad_accum)
+    if not layout.multi:
+        (inner,) = inner.values()
+    k = int(getattr(state, "grad_accum", 1) if accum is None else accum)
     if k <= 1:
         return inner
-    acc = {}
     mid = state.mini_step > 0
-    for label, net in _networks(modules).items():
-        acc[label] = _wrap(label, state_dict_to_flax({
-            n: p.grad if mid and p.grad is not None else torch.zeros_like(p)
-            for n, p in net.named_parameters()}))
+    acc = {key: _wrap(key, state_dict_to_flax({
+        n: p.grad if mid and p.grad is not None else torch.zeros_like(p)
+        for n, p in net.named_parameters()}))
+        for key, net in layout.nets.items()}
+    updates = max(_group_count(opt, label) for label in layout.labels)
     return (np.asarray(state.mini_step, np.int32),
-            np.asarray(_group_count(opt, "mapping"), np.int32), inner, acc,
-            ())
+            np.asarray(updates, np.int32), inner, acc, ())
 
 
-def _tensors(label: str, tree, device) -> dict[str, torch.Tensor]:
+def _tensors(key: str, tree, device) -> dict[str, torch.Tensor]:
     return {n: t.to(device) for n, t in flax_to_state_dict(
-        tree if label == "arcface" else tree["params"]).items()}
+        tree if key == "arcface" else tree["params"]).items()}
 
 
-def load_optimizer_tree(modules, state, tree) -> None:
+def load_optimizer_tree(layout: OptLayout, state, tree,
+                        accum: int | None = None) -> None:
     """Put an opt_state tree of :func:`optimizer_tree`'s layout (numpy)
     into ``state``'s optimizer, in place: moments and counts per group; at
     ``grad_accum`` > 1 also ``mini_step`` and, between micro-steps, the
     accumulated mean into the trainable parameters' ``.grad``."""
     opt = state.opt
-    k = int(state.grad_accum)
+    k = int(getattr(state, "grad_accum", 1) if accum is None else accum)
     if k > 1:
         mini, _, inner, acc, _ = tree
         state.mini_step = int(mini)
     else:
         inner, acc = tree, None
-        state.mini_step = 0
-    dev = modules.device
-    for label, params in _group_names(opt, modules).items():
+        if hasattr(state, "mini_step"):
+            state.mini_step = 0
+    if not layout.multi:
+        inner = dict.fromkeys(layout.labels, inner)
+    dev = layout.device
+    for label, params in _group_names(opt, layout).items():
         (count, mu, nu) = inner[label][0]
         count = int(count)
-        mu, nu = _tensors(label, mu, dev), _tensors(label, nu, dev)
+        key = layout.labels[label]
+        mu, nu = _tensors(key, mu, dev), _tensors(key, nu, dev)
         for n, p in params:
             if count == 0:
                 opt.state.pop(p, None)
@@ -300,8 +360,8 @@ def load_optimizer_tree(modules, state, tree) -> None:
             opt.state[p] = {"step": torch.tensor(float(count),
                                                  dtype=torch.float32),
                             "exp_avg": mu[n], "exp_avg_sq": nu[n]}
-    for label, net in _networks(modules).items():
-        grads = (_tensors(label, acc[label], dev)
+    for key, net in layout.nets.items():
+        grads = (_tensors(key, acc[key], dev)
                  if acc is not None and state.mini_step > 0 else None)
         for n, p in net.named_parameters():
             p.grad = (grads[n] if grads is not None and p.requires_grad
@@ -320,8 +380,24 @@ def train_state_tree(modules, state, meta: Mapping[str, int]) -> dict:
     return {"meta": {k: np.asarray(int(v), np.int64)
                      for k, v in meta.items()},
             "state": (np.asarray(state.step, np.int32), params,
-                      tmpl["arcface_stats"], optimizer_tree(modules, state),
+                      tmpl["arcface_stats"],
+                      optimizer_tree(joint_layout(modules), state),
                       ema)}
+
+
+def save_leaves(path: str | os.PathLike, tree: Any, **named) -> Path:
+    """Write ``tree``'s leaves as ``leaf_0 …`` (``jax.tree_util``'s order,
+    the JAX package's ``save_state_npz`` layout) and the ``named`` arrays
+    into the ``.npz`` ``path``, through a temporary file, so that an
+    interrupted write leaves no half file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    leaves, _ = jax_tree_flatten(tree)
+    tmp = path.with_name(path.name + ".tmp.npz")
+    np.savez(tmp, **named, **{f"leaf_{i}": np.asarray(x)
+                              for i, x in enumerate(leaves)})
+    os.replace(tmp, path)
+    return path
 
 
 def save_train_state(path: str | os.PathLike, modules, state,
@@ -329,14 +405,7 @@ def save_train_state(path: str | os.PathLike, modules, state,
     """Write ``modules`` and ``state`` (params, ArcFace statistics, the
     optimizer in optax's layout, the EMA) and ``meta`` as the JAX
     package's ``save_state_npz`` does."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    leaves, _ = jax_tree_flatten(train_state_tree(modules, state, meta))
-    tmp = path.with_name(path.name + ".tmp.npz")
-    np.savez(tmp, **{f"leaf_{i}": np.asarray(x)
-                     for i, x in enumerate(leaves)})
-    os.replace(tmp, path)
-    return path
+    return save_leaves(path, train_state_tree(modules, state, meta))
 
 
 def load_train_state(path: str | os.PathLike, modules, state,
@@ -361,7 +430,7 @@ def load_train_state(path: str | os.PathLike, modules, state,
     if ema is not None:
         state.ema = load_jax_ema(ema[0], int(ema[1]), modules.device)
     if not reset_optimizer:
-        load_optimizer_tree(modules, state, opt_tree)
+        load_optimizer_tree(joint_layout(modules), state, opt_tree)
     return {k: int(v) for k, v in got["meta"].items()}
 
 
@@ -381,20 +450,13 @@ def transfer_sr_adam_moments(modules, state, opt_npz_path
     ``optax.adam(lr).init(sr_params)``, i.e. ``count``, ``mu``, ``nu``)
     into the optimizer's ``sr`` group: moments and count.  Returns False,
     changing nothing, where the file does not match this UNet."""
-    sr = export_jax_params(modules)["sr"]
-    template = ((np.zeros((), np.int32), sr, sr), ())
+    layout = sr_layout(modules.unet)
     try:
-        (count, mu, nu), _ = load_leaves_into(opt_npz_path, template)
+        tree = load_leaves_into(opt_npz_path,
+                                optimizer_tree(layout, state, accum=1))
     except ValueError:
         return False
-    opt = state.opt
-    named = _group_names(opt, modules)["sr"]
-    dev = modules.device
-    mu, nu = _tensors("sr", mu, dev), _tensors("sr", nu, dev)
-    for n, p in named:
-        opt.state[p] = {"step": torch.tensor(float(int(count)),
-                                             dtype=torch.float32),
-                        "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+    load_optimizer_tree(layout, state, tree, accum=1)
     return True
 
 

@@ -39,6 +39,7 @@ from ..diffusion.gaussian import (
     ddim_sample_loop,
     dpmpp_sample_loop,
     p_losses_continuous,
+    p_losses_discrete,
     p_sample_loop,
 )
 from ..diffusion.schedules import DiffusionSchedule, schedule_from_config
@@ -54,7 +55,8 @@ from ..models.flame import (
 )
 from ..models.layers import init_lecun_normal_
 from ..models.mapping import MappingNetwork
-from ..models.sr3_unet import SR3UNet, unet_from_config
+from ..models.networks import define_g
+from ..models.sr3_unet import SR3UNet
 from ..ops.image import sr_to_mica_inputs
 
 
@@ -64,7 +66,7 @@ class JointModules:
     ``device``), FLAME buffers, the schedules, the vertex loss weights and
     the knobs of the train and val steps."""
 
-    unet: SR3UNet
+    unet: SR3UNet                      # or its DDPM subclass
     arcface: IResNet
     mapping: MappingNetwork
     flame: FlameModel
@@ -97,6 +99,9 @@ class JointModules:
     train_handoff_int8: bool = False
     image_size: int = 224
     blob_size: int = 112
+    # the UNet's time input (models/networks.py::define_g): the SR3
+    # family's noise level "gamma" or the DDPM family's timestep "t"
+    time_input: str = "gamma"
 
 
 @dataclasses.dataclass
@@ -169,8 +174,8 @@ def build_joint(cfg, flame: FlameModel | None = None,
     # values): seed it, inside a fork, so that init_seed alone decides
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(int(init_seed))
-        unet = unet_from_config(cfg.sr.model.unet, cfg.sr.model.diffusion,
-                                dtype=dtype, remat=bool(cfg.tpu.train_remat))
+        unet, time_input = define_g(cfg.sr.model, dtype=dtype,
+                                    remat=bool(cfg.tpu.train_remat))
         arcface = IResNet(layers=tuple(m.get("arcface_layers",
                                              (3, 13, 30, 3))), dtype=dtype,
                           train_frozen_prefix=train_prefix)
@@ -204,40 +209,42 @@ def build_joint(cfg, flame: FlameModel | None = None,
         handoff_grad_scale=float(cfg.train.get("handoff_grad_scale", 1.0)),
         train_arcface_prefix=train_prefix,
         train_handoff_int8=bool(d.get("train_handoff_int8", False)),
+        time_input=time_input,
     )
 
 
-def make_optimizer(cfg, modules: JointModules) -> torch.optim.AdamW:
-    """The JAX package's ``optax.multi_transform`` as param groups of one
-    ``AdamW`` (β = 0.9, 0.999, ε = 1e-8):
-
-    * ``sr``: the UNet, Adam at the constant ``cfg.sr.train.optimizer.lr``
-      (AdamW with weight decay 0 is Adam);
-    * ``arcface``: ArcFace's trainable parameters (stage 4 and the head, or
-      all with ``freeze_arcface_prefix: false``) at
-      ``cfg.mica.train.arcface_lr``, and ``mapping``: the mapping network at
-      ``cfg.mica.train.lr``; both with ``weight_decay`` and the staircase
-      StepLR ``lr·lr_gamma^(step // lr_update_step)`` (``set_step_lr``).
-
-    The frozen prefix is in no group: no update and no weight decay.
-    ``tpu.grad_accum`` (optax's ``MultiSteps``) is the train step's:
-    ``JointTrainState.grad_accum``."""
+def mica_param_groups(cfg, modules: JointModules, freeze: bool = True
+                      ) -> list[dict]:
+    """The MICA branch's param groups: ``arcface`` (ArcFace's trainable
+    parameters: stage 4 and the head, or all where ``freeze`` is False) at
+    ``cfg.mica.train.arcface_lr`` and ``mapping`` at ``cfg.mica.train.lr``,
+    both with ``weight_decay`` and the staircase StepLR
+    ``lr·lr_gamma^(step // lr_update_step)`` (``set_step_lr``).  The
+    frozen prefix is in no group: no update and no weight decay."""
     t = cfg.mica.train
-    freeze = bool(t.get("freeze_arcface_prefix", True))
     trainable = frozen_prefix_mask(modules.arcface)
     arcface = [p for n, p in modules.arcface.named_parameters()
                if trainable[n] or not freeze]
     decay = dict(weight_decay=float(t.weight_decay),
                  lr_update_step=int(t.lr_update_step),
                  lr_gamma=float(t.lr_gamma))
-    groups = [
-        dict(name="sr", params=list(modules.unet.parameters()),
-             lr=float(cfg.sr.train.optimizer.lr), weight_decay=0.0),
-        dict(name="arcface", params=arcface, lr=float(t.arcface_lr),
-             base_lr=float(t.arcface_lr), **decay),
-        dict(name="mapping", params=list(modules.mapping.parameters()),
-             lr=float(t.lr), base_lr=float(t.lr), **decay),
-    ]
+    return [dict(name="arcface", params=arcface, lr=float(t.arcface_lr),
+                 base_lr=float(t.arcface_lr), **decay),
+            dict(name="mapping", params=list(modules.mapping.parameters()),
+                 lr=float(t.lr), base_lr=float(t.lr), **decay)]
+
+
+def make_optimizer(cfg, modules: JointModules) -> torch.optim.AdamW:
+    """The JAX package's ``optax.multi_transform`` as param groups of one
+    ``AdamW`` (β = 0.9, 0.999, ε = 1e-8): ``sr``, the UNet, Adam at the
+    constant ``cfg.sr.train.optimizer.lr`` (AdamW with weight decay 0 is
+    Adam), and :func:`mica_param_groups` (``freeze_arcface_prefix``).
+    ``tpu.grad_accum`` (optax's ``MultiSteps``) is the train step's:
+    ``JointTrainState.grad_accum``."""
+    freeze = bool(cfg.mica.train.get("freeze_arcface_prefix", True))
+    groups = [dict(name="sr", params=list(modules.unet.parameters()),
+                   lr=float(cfg.sr.train.optimizer.lr), weight_decay=0.0),
+              *mica_param_groups(cfg, modules, freeze)]
     return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8)
 
 
@@ -353,7 +360,7 @@ def _handoff_sample(modules: JointModules, cond: torch.Tensor,
         modules.unet, remat=modules.unet.remat and not modules.sample_remat,
         quant=quant)
     kw = dict(generator=generator, noise=noise, differentiable=differentiable,
-              remat=modules.sample_remat)
+              remat=modules.sample_remat, time_input=modules.time_input)
     chunk = modules.sample_remat_chunk
     if modules.train_sampler == "ddim":
         if chunk > 1 and modules.train_ddim_steps % chunk:
@@ -392,16 +399,36 @@ def _handoff_image(modules: JointModules, cond: torch.Tensor,
     return final.permute(0, 2, 3, 1)
 
 
+def sr_loss(unet: SR3UNet, sched: DiffusionSchedule, time_input: str,
+            hr: torch.Tensor, cond: torch.Tensor | None, *,
+            generator: torch.Generator | None = None,
+            draws: dict | None = None, loss_type: str = "l1"
+            ) -> torch.Tensor:
+    """The diffusion loss of NHWC ``hr`` conditioned on NHWC ``cond``
+    (None: unconditional), divided by ``hr.numel()``:
+    ``p_losses_continuous`` for the SR3 family (``draws``: ``"gamma"``,
+    ``"noise"``), ``p_losses_discrete`` for the DDPM family (``"t"``,
+    ``"noise"``)."""
+    draws = draws or {}
+    x = hr.permute(0, 3, 1, 2).contiguous()
+    c = None if cond is None else cond.permute(0, 3, 1, 2).contiguous()
+    if time_input == "t":
+        loss = p_losses_discrete(unet, sched, x, c, generator=generator,
+                                 t=draws.get("t"), noise=draws.get("noise"),
+                                 loss_type=loss_type)
+    else:
+        loss = p_losses_continuous(unet, sched, x, c, generator=generator,
+                                   gamma=draws.get("gamma"),
+                                   noise=draws.get("noise"),
+                                   loss_type=loss_type)
+    return loss / hr.numel()
+
+
 def _l_sr(modules: JointModules, hr: torch.Tensor, cond: torch.Tensor,
           generator: torch.Generator | None, draws: dict) -> torch.Tensor:
-    """``p_losses_continuous(…) / hr.numel()`` of NHWC ``hr`` conditioned
-    on NHWC ``cond``."""
-    return p_losses_continuous(
-        modules.unet, modules.sched_train,
-        hr.permute(0, 3, 1, 2).contiguous(),
-        cond.permute(0, 3, 1, 2).contiguous(), generator=generator,
-        gamma=draws.get("gamma"), noise=draws.get("noise"),
-        loss_type=modules.loss_type) / hr.numel()
+    return sr_loss(modules.unet, modules.sched_train, modules.time_input,
+                   hr, cond, generator=generator, draws=draws,
+                   loss_type=modules.loss_type)
 
 
 def _l_mica(modules: JointModules, blob: torch.Tensor,
@@ -453,6 +480,38 @@ def train_losses(modules: JointModules, batch: dict, *,
                     "img224": img224.detach()}}
 
 
+def accumulate_and_step(state: JointTrainState, loss_fn,
+                        nets: Sequence[torch.nn.Module]) -> torch.Tensor:
+    """One micro-step: ``loss_fn()`` with ``nets`` in train mode, its
+    backward, and under ``state.grad_accum = k`` the running mean of the
+    gradients of k calls (optax's ``MultiSteps``); the optimizer steps on
+    every k-th call only (StepLR set from the updates made so far).
+    Returns the loss."""
+    k = state.grad_accum
+    micro = state.mini_step
+    params = [p for g in state.opt.param_groups for p in g["params"]]
+    acc = [p.grad for p in params] if micro else None
+    state.opt.zero_grad(set_to_none=True)
+    for net in nets:
+        net.train()
+    try:
+        loss = loss_fn()
+        loss.backward()
+    finally:
+        for net in nets:
+            net.eval()
+    if acc is not None:   # acc + (g − acc)/(n + 1), optax's mean
+        grads = [p.grad for p in params]
+        torch._foreach_sub_(grads, acc)
+        torch._foreach_div_(grads, micro + 1)
+        torch._foreach_add_(grads, acc)
+    if micro == k - 1:
+        set_step_lr(state.opt)
+        state.opt.step()
+    state.mini_step = (micro + 1) % k
+    return loss
+
+
 def make_train_step(ema_cfg: dict | None = None, with_vis: bool = False):
     """``train_step(modules, state, batch, *, generator=None, draws=None)
     -> (state, metrics)`` for model2 and model3, updating the modules, the
@@ -481,30 +540,15 @@ def make_train_step(ema_cfg: dict | None = None, with_vis: bool = False):
                    batch: dict, *, generator: torch.Generator | None = None,
                    draws: dict | None = None
                    ) -> tuple[JointTrainState, dict]:
-        k = state.grad_accum
-        micro = state.mini_step
-        params = [p for g in state.opt.param_groups for p in g["params"]]
-        acc = [p.grad for p in params] if micro else None
-        state.opt.zero_grad(set_to_none=True)
-        modules.unet.train()
-        modules.arcface.train()
-        try:
-            out = train_losses(modules, batch, generator=generator,
-                               draws=draws)
-            loss = out["l_sr"] + out["l_mica"]
-            loss.backward()
-        finally:
-            modules.unet.eval()
-            modules.arcface.eval()
-        if acc is not None:   # acc + (g − acc)/(n + 1), optax's mean
-            grads = [p.grad for p in params]
-            torch._foreach_sub_(grads, acc)
-            torch._foreach_div_(grads, micro + 1)
-            torch._foreach_add_(grads, acc)
-        if micro == k - 1:
-            set_step_lr(state.opt)
-            state.opt.step()
-        state.mini_step = (micro + 1) % k
+        out = {}
+
+        def loss_fn():
+            out.update(train_losses(modules, batch, generator=generator,
+                                    draws=draws))
+            return out["l_sr"] + out["l_mica"]
+
+        loss = accumulate_and_step(state, loss_fn,
+                                   (modules.unet, modules.arcface))
         if state.ema is not None and ema_cfg is not None:
             ema_update(state.ema, dict(modules.unet.named_parameters()),
                        decay=float(ema_cfg["ema_decay"]),
@@ -575,7 +619,8 @@ def make_val_step(use_ema: bool = False, int8: bool | None = None):
             def denoise(x, t):
                 return functional_call(modules.unet, ema.params, (x, t),
                                        {"quant": quant})
-        kw = dict(generator=generator, noise=noise, init=modules.sampler_init)
+        kw = dict(generator=generator, noise=noise, init=modules.sampler_init,
+                  time_input=modules.time_input)
         if modules.val_sampler == "ddim":
             final = ddim_sample_loop(denoise, modules.sched_val, cond,
                                      num_steps=modules.ddim_steps,

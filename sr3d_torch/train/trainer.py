@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import data as data_lib
-from ..data.pipeline import prefetch_to_device, shard_batch
+from ..data.pipeline import flatten_actors, prefetch_to_device, shard_batch
 from ..device import resolve_device
 from ..diffusion.ema import ema_init
 from ..eval.export import export_prediction
@@ -367,14 +367,9 @@ class Trainer:
     def prepare_batch(raw: dict) -> dict:
         """Flatten actor-K batches to ``[B·K, …]`` float32 (NHWC) and keep
         the step's inputs."""
-        out = {}
-        for key in ("HR", "SR", "LR", "flame_shape", "arcface", "image"):
-            if key in raw:
-                v = np.asarray(raw[key], np.float32)
-                if v.ndim == 5 or (key == "flame_shape" and v.ndim == 3):
-                    v = v.reshape((-1,) + v.shape[2:])
-                out[key] = v
-        return out
+        return flatten_actors(raw, [k for k in ("HR", "SR", "LR",
+                                                "flame_shape", "arcface",
+                                                "image") if k in raw])
 
     @classmethod
     def step_batch(cls, raw: dict) -> dict:

@@ -626,3 +626,92 @@ def test_prefetch_matches_a_synchronous_copy(cuda):
         for k in ("HR", "flame_shape"):
             assert torch.equal(a[k] * 1, b[k]), k
     torch.cuda.synchronize()
+
+
+def _kernel_modules(unet):
+    """(GN+Swish modules, those inside the checkpointed blocks, attention
+    modules) of a UNet: one launch each a forward; under remat the blocks'
+    run again in the backward."""
+    from sr3d_torch.models.sr3_unet import GroupNormSwish, SelfAttention
+
+    gn = [n for n, m in unet.named_modules() if isinstance(m, GroupNormSwish)]
+    attn = [n for n, m in unet.named_modules() if isinstance(m, SelfAttention)]
+    return len(gn), len([n for n in gn if not n.startswith("final_conv")]), \
+        len(attn)
+
+
+def test_ddpm_unet_on_the_card_matches_the_cpu(cuda):
+    """The DDPM family's UNet (integer t) on the card, through the GN+Swish
+    and attention kernels, against the same weights on the CPU (plain
+    versions), fp32; one launch per GN+Swish and attention module."""
+    import copy
+
+    from sr3d_torch.models.ddpm_unet import DDPMUNet
+
+    torch.manual_seed(0)
+    cpu = DDPMUNet(inner_channel=16, norm_groups=8, channel_mults=(1, 2),
+                   attn_res=(8,), res_blocks=1, image_size=16,
+                   dtype=torch.float32).eval()
+    gpu = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(2, 6, 16, 16, generator=torch.Generator().manual_seed(1))
+    t = torch.tensor([3, 17])
+    n_gn, _, n_attn = _kernel_modules(gpu)
+    reset_launch_counts()
+    with torch.no_grad():
+        y = gpu(x.to(cuda), t.to(cuda))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        ref = cpu(x, t)
+    assert counts["gn_swish"] == n_gn and counts["spatial_attention"] == \
+        n_attn, counts
+    torch.testing.assert_close(y.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("which", ["sr3", "ddpm"])
+def test_sr_only_step_on_the_card_matches_the_cpu(cuda, which):
+    """One SR-only train step (remat on) on the card against the CPU's
+    from the same weights and draws: l_pix to 1e-4, the parameters after
+    Adam within 2·lr (99% to 1e-5); the launches: every GN+Swish and
+    attention module once forward and, inside the checkpointed blocks,
+    once more in the backward."""
+    from sr3d_torch.config import get_cfg_defaults
+    from sr3d_torch.train.sr_only import SRModel
+
+    cfg = get_cfg_defaults()
+    cfg.tpu.compute_dtype = "float32"
+    cfg.tpu.train_remat = True
+    u = cfg.sr.model.unet
+    u.inner_channel, u.norm_groups = 16, 8
+    u.channel_multiplier, u.attn_res = [1, 2], [8]
+    u.res_blocks, u.dropout = 1, 0.0
+    cfg.sr.model.diffusion.image_size = 16
+    cfg.sr.model.which_model_G = which
+    for ph in ("train", "val"):
+        cfg.sr.model.beta_schedule[ph].n_timestep = 8
+    g = torch.Generator().manual_seed(2)
+    batch = {"HR": torch.rand(2, 16, 16, 3, generator=g) * 2 - 1,
+             "SR": torch.rand(2, 16, 16, 3, generator=g) * 2 - 1}
+    draws = {"noise": torch.randn(2, 3, 16, 16, generator=g),
+             "t": torch.tensor([1, 6]), "gamma": torch.tensor([0.9, 0.4])}
+    res = []
+    for dev in ("cpu", cuda):
+        m = SRModel(cfg, device=dev, init_seed=0)
+        st = m.init_state()
+        reset_launch_counts()
+        st, met = m.make_train_step()(st, batch, draws=dict(draws))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            n_gn, n_blocks, n_attn = _kernel_modules(m.unet)
+            assert counts["gn_swish"] == n_gn + n_blocks, counts
+            assert counts["spatial_attention"] == 2 * n_attn, counts
+        res.append((float(met["l_pix"]), {n: p.detach().cpu() for n, p in
+                                          m.unet.named_parameters()}))
+    assert abs(res[1][0] - res[0][0]) <= 1e-4 * abs(res[0][0])
+    lr = float(cfg.sr.train.optimizer.lr)
+    off = total = 0
+    for n, p in res[0][1].items():
+        d = (res[1][1][n] - p).abs()
+        assert float(d.max()) <= 2 * lr + 1e-6, n
+        off, total = off + int((d > 1e-5).sum()), total + d.numel()
+    assert off <= 0.01 * total, f"{off} of {total}"

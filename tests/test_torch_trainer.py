@@ -13,7 +13,7 @@ on the CPU at the tiny config:
   file names;
 * ``BestModel``, ``-ckt`` (a step, a train state, a converted UNet),
   ``reset_optimizer``, the SR-only warm start with its Adam moments, the
-  pretrained MICA files, the unported flags."""
+  pretrained MICA files, the branch trainers' flags."""
 
 import functools
 import sys
@@ -483,7 +483,7 @@ def test_sr_warm_start_transfers_adam_moments_as_jax(tmp_path):
                if k != "arcface_stats"}
     fresh = jax.tree.map(np.asarray, jj.make_optimizer(jcfg).init(jparams))
     ref = jc.transfer_sr_adam_moments(fresh, sr, f"{prefix}_opt.npz")
-    mine = tc.optimizer_tree(tr.modules, tr.state)
+    mine = tc.optimizer_tree(tc.joint_layout(tr.modules), tr.state)
     a, b = tc.jax_tree_flatten(mine)[0], jax.tree_util.tree_leaves(ref)
     assert len(a) == len(b)
     for x, y in zip(a, b):
@@ -516,9 +516,25 @@ def test_pretrained_mica_files_load(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--sr-only", "--legacy"])
-def test_unported_trainers_raise(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tcli.main(["-p", "train", "-c", str(TINY), flag], device="cpu")
+def test_unported_trainers_raise(flag, monkeypatch):
+    """The branch trainers are ported: each flag now reaches its runner
+    (``tests/test_torch_sr_only.py`` and ``test_torch_legacy.py`` drive
+    them), with the device and the step cap, and not the joint Trainer;
+    without a device the entry point still raises where there is no
+    GPU."""
+    calls = []
+    for name in ("run_sr_only", "run_legacy"):
+        monkeypatch.setattr(tcli, name, lambda cfg, max_steps=None, *,
+                            device=None, name=name: calls.append(
+                                (name, max_steps, str(device))))
+    monkeypatch.setattr("sr3d_torch.train.trainer.Trainer", None)
+    assert tcli.main(["-p", "train", "-c", str(TINY), flag,
+                      "--max-steps", "3"], device="cpu") == 0
+    want = "run_sr_only" if flag == "--sr-only" else "run_legacy"
+    assert calls == [(want, 3, "cpu")]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tcli.main(["-c", str(TINY), flag])
 
 
 def test_more_than_one_device_raises(tmp_path):
