@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving and training paths, and the tools
+around them, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -75,7 +75,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    through ``cli.main --legacy`` (3 DDIM-25 steps, then a resumed T=600
    step); files, counters, finite losses, moved parameters and each call's
    launches checked; s/step, peak memory and the pairs' sizes and write /
-   read times printed.
+   read times printed;
+12. the tools around those paths at the same full widths: a
+   reference-layout asset tree (iResNet-100 ``backbone.pth``, the UNet's
+   ``I100_E5_gen.pth`` + ``_opt.pth``, a MICA ``.tar``, FLAME2020 at 5023
+   vertices) through ``python -m sr3d_torch.utils.bootstrap`` and
+   ``--check`` (a flipped byte caught), the converted UNet served through
+   the serving CLI (a request of 8, DDIM-25, int8) and bit-equal to the
+   same weights through ``params=``, the converted ArcFace loaded; the NoW
+   runner's dry run (4 subjects x 2) and a run with phase 10's
+   checkpoint, Stirling on 4 HQ + 4 LQ pictures; ``data/prepare.py
+   --srpk`` and ``data/creation.py --raw-root`` on 16 rendered faces, a
+   batch of each onto the card; their times printed.
 
 The line before the last lists the kernels as JSON (top-level numbers at
 the widest main-path shape in bf16, the shapes above under ``shapes``,
@@ -85,7 +96,8 @@ phase 9's int8 CLI run, its main path; ``cli_launches`` from that run,
 ``train_launches`` from phase 6's three steps, ``model3_launches`` from
 phase 7's three, ``trainer_launches`` from phase 10, ``sr_only_launches``
 from phase 11's SR-only CLI calls, ``legacy_launches`` from its
-``--legacy`` calls); the last line
+``--legacy`` calls, ``tools_launches`` from phase 12's served request);
+the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
 and when the repository's ``sr3d_torch`` package is not beside this script.
 """
@@ -2224,6 +2236,481 @@ def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
     return {"sr_only": sr_counts, "legacy": legacy}
 
 
+# --------------------------------------------------------------------------
+# 12. evaluation and asset tools
+# --------------------------------------------------------------------------
+
+def _ref_unet_key(prefix: str, rest: str) -> str:
+    """A port UNet parameter name (flax scope names) below a block → the
+    reference ``downs.N`` / ``mid.N`` / ``ups.N`` module's name."""
+    import re
+
+    rest = re.sub(r"(block[12])\.norm\.scale$", r"\1.block.0.weight", rest)
+    rest = re.sub(r"(block[12])\.norm\.bias$", r"\1.block.0.bias", rest)
+    rest = re.sub(r"(block[12])\.conv\.", r"\1.block.3.", rest)
+    rest = rest.replace("noise_func.noise_func.", "noise_func.noise_func.0.")
+    return f"{prefix}.{rest.replace('norm.scale', 'norm.weight')}"
+
+
+def reference_unet_sd(unet) -> dict:
+    """The port SR3 UNet's weights keyed as the reference's ``*_gen.pth``:
+    the inverse of ``utils/convert.py::convert_sr3_unet``'s walk (both
+    layouts keep torch's OIHW / ``[out, in]`` weights)."""
+    prefix = {"conv_in": "downs.0", "mid_0": "mid.0", "mid_1": "mid.1"}
+    downs = [n for k, n in unet.plan if k in ("down", "downsample")]
+    ups = [n for k, n in unet.plan if k in ("up", "upsample")]
+    prefix.update({n: f"downs.{i + 1}" for i, n in enumerate(downs)})
+    prefix.update({n: f"ups.{i}" for i, n in enumerate(ups)})
+    sd = {}
+    for name, p in unet.named_parameters():
+        top, rest = name.split(".", 1)
+        if top == "noise_level_mlp":
+            key = ("noise_level_mlp." + rest.replace("dense0", "1")
+                   .replace("dense1", "3"))
+        elif top == "final_conv":
+            key = ("final_conv." + rest.replace("norm.scale", "block.0.weight")
+                   .replace("norm.bias", "block.0.bias")
+                   .replace("conv.", "block.3."))
+        elif top == "conv_in":
+            key = f"downs.0.{rest}"
+        else:
+            key = _ref_unet_key(prefix[top], rest)
+        sd[key] = p.detach().float().cpu().clone()
+    return sd
+
+
+def reference_arcface_sd(arcface) -> dict:
+    """The port IResNet's weights and statistics keyed as insightface's
+    ``backbone.pth`` (BatchNorm ``running_*`` and ``num_batches_tracked``,
+    the ``fc`` input in torch's (c, h, w) order, the pinned ``features``
+    scale): the inverse of ``utils/convert.py::convert_arcface``."""
+    import re
+
+    leaf = {"scale": "weight", "alpha": "weight", "mean": "running_mean",
+            "var": "running_var"}
+    sd = {}
+    for name, t in [*arcface.named_parameters(), *arcface.named_buffers()]:
+        path, last = name.rsplit(".", 1)
+        path = re.sub(r"^layer(\d)\.block(\d+)", r"layer\1.\2", path)
+        path = path.replace("downsample_conv", "downsample.0") \
+            .replace("downsample_bn", "downsample.1")
+        t = t.detach().float().cpu().clone()
+        if name == "fc.weight":
+            c = t.shape[1] // 49
+            t = t.reshape(-1, 7, 7, c).permute(0, 3, 1, 2).reshape(
+                t.shape[0], -1).contiguous()
+        sd[f"{path}.{leaf.get(last, last)}"] = t
+        if last == "mean":
+            sd[f"{path}.num_batches_tracked"] = torch.tensor(0)
+    sd["features.weight"] = torch.ones_like(sd["features.bias"])
+    return sd
+
+
+def reference_mapping_sd(mapping) -> dict:
+    """The mapping network keyed as the reference's ``MappingNetwork``
+    (``network.i`` + ``output``)."""
+    return {name.replace("dense", "network.", 1) if name.startswith("dense")
+            else name: p.detach().float().cpu().clone()
+            for name, p in mapping.named_parameters()}
+
+
+def write_reference_assets(root: Path, unet, arcface, mapping,
+                           n_vertices: int, seed: int = 0) -> dict:
+    """A reference-layout asset tree from port modules: ``insightface/
+    backbone.pth``, ``checkpoint/I100_E5_gen.pth`` + ``_opt.pth`` (the
+    reference's save format: counters and the torch Adam state, zero
+    moments for every parameter), a MICA ``model_mica.tar`` (``arcface``
+    and ``flameModel`` with the ``regressor.`` mapping) and ``FLAME2020/``
+    from ``write_reference_format_assets``.  Returns their paths."""
+    from sr3d_torch.models.flame import write_reference_format_assets
+
+    paths = {"backbone": root / "insightface" / "backbone.pth",
+             "sr_gen": root / "checkpoint" / "I100_E5_gen.pth",
+             "sr_opt": root / "checkpoint" / "I100_E5_opt.pth",
+             "mica_ckpt": root / "model_mica.tar"}
+    for p in paths.values():
+        p.parent.mkdir(parents=True, exist_ok=True)
+    arc = reference_arcface_sd(arcface)
+    torch.save(arc, paths["backbone"])
+    gen = reference_unet_sd(unet)
+    torch.save(gen, paths["sr_gen"])
+    state = {i: {"step": torch.tensor(100.0),
+                 "exp_avg": torch.zeros_like(v),
+                 "exp_avg_sq": torch.zeros_like(v)}
+             for i, v in enumerate(gen.values())}
+    torch.save({"epoch": 5, "iter": 100, "scheduler": None,
+                "optimizer": {"state": state, "param_groups": [{
+                    "lr": 1e-4, "betas": (0.9, 0.999), "eps": 1e-8,
+                    "weight_decay": 0, "amsgrad": False,
+                    "params": list(state)}]}}, paths["sr_opt"])
+    flame_model = {f"regressor.{k}": v
+                   for k, v in reference_mapping_sd(mapping).items()}
+    flame_model["generator.v_template"] = torch.zeros(n_vertices, 3)
+    torch.save({"arcface": arc, "flameModel": flame_model},
+               paths["mica_ckpt"])
+    paths.update({k: Path(v) for k, v in write_reference_format_assets(
+        str(root / "FLAME2020"), n_vertices=n_vertices, seed=seed).items()})
+    return paths
+
+
+def _lr_pngs(d: Path, n: int, seed: int) -> None:
+    from PIL import Image
+
+    from sr3d_torch.data.synthetic import synthetic_face_batch
+    from sr3d_torch.ops.image import tensor_to_uint8
+
+    d.mkdir(parents=True)
+    faces = tensor_to_uint8(torch.from_numpy(
+        synthetic_face_batch(n, 16, seed=seed))).to(torch.uint8).numpy()
+    for i, f in enumerate(faces):
+        Image.fromarray(f).save(d / f"face_{i:02d}.png")
+
+
+def _mib(root: Path) -> float:
+    return sum(p.stat().st_size for p in root.rglob("*")
+               if p.is_file()) / 2 ** 20
+
+
+def phase_tools(dev, tmp: Path, trainer_ckpt: Path,
+                config: Path = CONFIG) -> dict:
+    """The tools around the main paths, at the flagship config's full
+    widths (``configs/sr_sr3_VGGF2_16_128_model2.yml``: UNet 92.6M,
+    iResNet-100, 300 shape coefficients):
+
+    (a) released assets → a served request: a reference-layout asset tree
+        fabricated from seeded port modules (insightface
+        ``backbone.pth``, the UNet's ``I100_E5_gen.pth`` + ``_opt.pth``, a
+        MICA ``.tar``, FLAME2020 files of 5023 vertices from
+        ``write_reference_format_assets``, ~1.6 GB) through ``python -m
+        sr3d_torch.utils.bootstrap``, then ``--check`` (a subprocess), a
+        flipped output byte that ``--check`` must catch; the converted
+        UNet served through ``sr3d_torch.serve.main`` (a request of 8,
+        DDIM-25, the int8 default: GN+Swish, attention and ``int8_conv``),
+        ``Predictor.from_config(checkpoint=)`` on it bit-equal to the same
+        weights through ``params=``, the converted ``arcface.npz`` loaded
+        by ``load_arcface_npz`` equal to the fabricated backbone;
+    (b) NoW: ``python -m sr3d_torch.eval.now_protocol``'s dry run (4
+        subjects × 2 pictures rendered from the sphere FLAME, batch 8) and
+        a run on those pictures and scans with ``-ckt`` phase 10's
+        checkpoint; the prediction and ``evaluate_now`` timed on their
+        own; ``Tester.run_stirling`` on an HQ/LQ tree of 4 + 4 pictures;
+    (c) dataset tools: ``data/prepare.py --size 16,128 --srpk`` on 16
+        faces rendered from the sphere FLAME, a batch of 8 of the packed
+        stores (``SrpkImageDataset``) and one of the PNG dirs
+        (``LRHRDataset``) onto the card through ``prefetch_to_device``; ``data/creation.py --raw-root`` on a raw
+        tree of one source (4 actors × 4 of those faces, a FLAME parameter
+        file each) and one batch of 2 actors of the ``JointFaceDataset``
+        over its index and blobs (with the SR triplets the dataset reads
+        beside them, which neither package's creation tool writes) onto
+        the card.
+
+    Returns the launches of (a)'s served request."""
+    import yaml
+    from PIL import Image
+
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    from sr3d_torch.data import creation, prepare
+    from sr3d_torch.data.joint import JointFaceDataset
+    from sr3d_torch.data.lrhr import LRHRDataset
+    from sr3d_torch.data.pipeline import BatchLoader, prefetch_to_device
+    from sr3d_torch.data.srpk import SrpkImageDataset
+    from sr3d_torch.data.synthetic import render_flame_views
+    from sr3d_torch.eval import now_protocol
+    from sr3d_torch.eval.tester import Tester
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.models.flame import sphere_flame
+    from sr3d_torch.serve import Predictor, apply_serving_flags
+    from sr3d_torch.serve import main as serve_main
+    from sr3d_torch.train.checkpoint import load_arcface_npz, npz_leaves
+    from sr3d_torch.train.joint import build_joint
+    from sr3d_torch.train.mica_only import make_mica_predict
+    from sr3d_torch.utils import bootstrap
+    from sr3d_torch.utils.bridge import export_jax_params
+
+    t_phase = time.perf_counter()
+    root = tmp / "tools"
+    smi = smi_line()
+
+    # (a) the asset tree, converted, checked, served
+    cfg = update_cfg(get_cfg_defaults(), str(config))
+    m = cfg.mica.model
+    n_shape, lo, hi = (int(m.n_shape), int(cfg.sr.datasets.val.l_resolution),
+                       int(cfg.sr.datasets.val.r_resolution))
+    src = build_joint(cfg, init_seed=1, device=dev)
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():      # ArcFace's statistics off their 0/1 init
+        for name, b in src.arcface.named_buffers():
+            b.copy_(torch.rand(b.shape, generator=g) + 0.5
+                    if name.endswith("var")
+                    else torch.randn(b.shape, generator=g) * 0.1)
+    assets = root / "assets"
+    t0 = time.perf_counter()
+    write_reference_assets(assets, src.unet, src.arcface, src.mapping,
+                           n_vertices=5023)
+    t_fab, in_mib = time.perf_counter() - t0, _mib(assets)
+    out = root / "converted"
+    t0 = time.perf_counter()
+    require(bootstrap.main([
+        "--assets", str(assets), "--out", str(out), "--image-size", str(hi),
+        "--attn-res", ",".join(str(x) for x in cfg.sr.model.unet.attn_res),
+        "--n-shape", str(n_shape), "--mapping-hidden", str(m.mapping_layers),
+        "--arcface-layers", ",".join(str(x) for x in m.arcface_layers)])
+        == 0, "the bootstrap failed")
+    t_boot, out_mib = time.perf_counter() - t0, _mib(out)
+    manifest = json.loads((out / "manifest.json").read_text())
+    kinds = [e["kind"] for e in manifest["artifacts"]]
+    require(kinds == ["flame/generic_model.pkl",
+                      "flame/landmark_embedding.npy",
+                      "flame/FLAME_masks.pkl", "arcface", "sr3_unet",
+                      "arcface", "mapping"], f"manifest kinds {kinds}")
+    sr_entry = manifest["artifacts"][4]
+    require(sr_entry["structure"]["attn_res"] == [-1]
+            and sr_entry["structure"]["channel_mults"]
+            == list(cfg.sr.model.unet.channel_multiplier)
+            and sr_entry["opt_counters"]["iter"] == 100
+            and manifest["artifacts"][0]["n_vertices"] == 5023,
+            f"the converted UNet's entry {sr_entry}")
+    check = [sys.executable, "-m", "sr3d_torch.utils.bootstrap",
+             "--assets", str(assets), "--out", str(out), "--check"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(check, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    t_check = time.perf_counter() - t0
+    require(proc.returncode == 0 and proc.stdout.count("ok ") == 7,
+            f"--check: {proc.returncode} {proc.stdout} {proc.stderr}")
+    victim = out / "arcface_from_tar.npz"
+    data = bytearray(victim.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    victim.write_bytes(bytes(data))
+    proc = subprocess.run(check, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    require(proc.returncode == 1 and "CORRUPT" in proc.stdout,
+            f"--check passed a corrupted output: {proc.stdout}")
+    data[len(data) // 2] ^= 0xFF
+    victim.write_bytes(bytes(data))
+    require(bootstrap.check_manifest(out), "--check after the repair")
+    shutil.rmtree(assets)
+    print(f"[12] tools: reference-layout assets ({in_mib:.0f} MiB: "
+          f"iResNet-100 backbone.pth, the flagship UNet's I100_E5_gen.pth "
+          f"+ _opt.pth, a MICA .tar, FLAME2020 at 5023 vertices) written in "
+          f"{t_fab:.1f} s; bootstrap {t_boot:.2f} s -> {out_mib:.0f} MiB "
+          f"(manifest of 7, 'structural'/'loaded'); --check "
+          f"{t_check:.2f} s (a subprocess), a flipped byte caught; {smi}")
+
+    lr_dir = root / "lr"
+    _lr_pngs(lr_dir, 8, seed=4)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    require(serve_main(["-c", str(config), "-ckt", str(out / "sr_gen.npz"),
+                        "--input", str(lr_dir), "--out", str(root / "served"),
+                        "--sampler", "ddim", "--steps", "25",
+                        "--batch", "8"]) == 0, "serving the converted UNet")
+    torch.cuda.synchronize()
+    t_cli, counts = time.perf_counter() - t0, launch_counts()
+    want = {"gn_stats": 0, "gn_swish": 55 * 25, "spatial_attention": 25,
+            "conv3x3": 0, "fused_gn_swish_conv3x3": 0,
+            "int8_conv": 58 * 25}
+    require(counts == want, f"served request launches {counts}, want {want}")
+    require(len(list((root / "served").rglob("*_sr.png"))) == 8,
+            "the served bundles")
+    c = apply_serving_flags(cfg.clone(), sampler="ddim", steps=25, int8=None)
+    p_ck = Predictor.from_config(c, checkpoint=str(out / "sr_gen.npz"),
+                                 batch_size=8)
+    tree = export_jax_params(p_ck.modules)
+    tree["sr"] = export_jax_params(src)["sr"]
+    p_par = Predictor.from_config(c, params=tree, batch_size=8)
+    req = np.stack([np.asarray(Image.open(p)) for p in
+                    sorted(lr_dir.glob("*.png"))])
+    outs, t_req = {}, []
+    for tag, p in (("checkpoint", p_ck), ("params", p_par)):
+        p.warmup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[tag] = p.predict(req, generator=torch.Generator().manual_seed(5))
+        torch.cuda.synchronize()
+        t_req.append(time.perf_counter() - t0)
+    check_outputs(outs["checkpoint"], 8, p_ck.modules.flame.n_vertices,
+                  n_shape)
+    for k in outs["params"]:
+        require(np.array_equal(outs["checkpoint"][k], outs["params"][k]),
+                f"the converted UNet's {k} differs from params=")
+    mods = p_ck.modules
+    load_arcface_npz(out / "arcface.npz", mods)
+    got = dict(mods.arcface.named_parameters())
+    got.update(mods.arcface.named_buffers())
+    ref = dict(src.arcface.named_parameters())
+    ref.update(src.arcface.named_buffers())
+    require(got.keys() == ref.keys() and all(
+        torch.equal(got[k].float(), ref[k].float()) for k in ref),
+        "load_arcface_npz of the converted backbone")
+    mapping = npz_leaves(out / "mapping.npz")
+    require(len(mapping) == 2 * src.mapping.n_layers + 2,
+            f"mapping.npz leaves {len(mapping)}")
+    del src, p_ck, p_par, mods
+    print(f"    python -m sr3d_torch.serve -ckt sr_gen.npz (8 faces, "
+          f"DDIM-25, int8 default): {t_cli:.2f} s with build, load and "
+          f"export; launches {counts}; request of 8 "
+          f"{t_req[0] * 1e3:.1f} ms (checkpoint=) / {t_req[1] * 1e3:.1f} "
+          f"ms (params=), bit-equal in sr_u8, verts, lmk68, identity; "
+          f"arcface.npz loads to the backbone's parameters and statistics; "
+          f"{smi}")
+
+    # (b) NoW: the dry run, then a checkpoint on its pictures and scans
+    dry = root / "now_dry"
+    t0 = time.perf_counter()
+    require(now_protocol.main(["-c", str(config), "--out", str(dry),
+                               "--subjects", "4", "--imgs", "2",
+                               "--batch", "8"]) == 0, "the NoW dry run")
+    t_dry = time.perf_counter() - t0
+    rep = json.loads((dry / "now_report.json").read_text())
+    require(rep["n"] == 8 and np.isfinite(
+        [rep["median"], rep["mean"], rep["std"]]).all()
+        and len(list((dry / "predicted_meshes").rglob("*.ply"))) == 8,
+        f"the dry run's report {rep}")
+    with open(config) as f:
+        base = yaml.safe_load(f)
+    overlay = root / "now_sphere.yml"
+    overlay.write_text(yaml.safe_dump(_merge(base, {
+        "mica": {"model": {"synthetic_flame_kind": "sphere"}}})))
+    pictures, scans = dry / "fixture" / "pictures", dry / "fixture" / "scans"
+    ck = root / "now_ckpt"
+    t0 = time.perf_counter()
+    require(now_protocol.main(["-c", str(overlay), "-ckt", str(trainer_ckpt),
+                               "--pictures", str(pictures), "--scans",
+                               str(scans), "--out", str(ck),
+                               "--batch", "8"]) == 0,
+            "the NoW run on the checkpoint")
+    t_ck = time.perf_counter() - t0
+    rep2 = json.loads((ck / "now_report.json").read_text())
+    require(rep2["n"] == 8 and np.isfinite(
+        [rep2["median"], rep2["mean"], rep2["std"]]).all(),
+        f"the checkpoint run's report {rep2}")
+    c2 = update_cfg(get_cfg_defaults(), str(overlay))
+    mods = build_joint(c2, init_seed=int(c2.seed), device=dev)
+    now_protocol._build_state(c2, str(trainer_ckpt), mods)
+    tester = Tester(mods, make_mica_predict(),
+                    cache_path=str(ck / "blob_cache.npz"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tester.run(None, pictures, root / "now_timed", batch=8)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep3 = Tester.evaluate_now(root / "now_timed", scans)
+    t_eval = time.perf_counter() - t0
+    require(abs(rep3["median"] - rep2["median"]) < 1e-6,
+            f"the timed run's median {rep3['median']} vs {rep2['median']}")
+    st_root = root / "stirling" / "Real_images__Subset_2D_FG2018"
+    jpgs = sorted(pictures.rglob("*.jpg"))
+    for k, p in enumerate(jpgs):
+        q = "HQ" if k < 4 else "LQ"
+        (st_root / q).mkdir(parents=True, exist_ok=True)
+        shutil.copy(p, st_root / q / f"{'FM'[k % 2]}{1000 + k}_0{k % 2}.jpg")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_counts = tester.run_stirling(None, root / "stirling",
+                                    root / "stirling_out", batch=8)
+    torch.cuda.synchronize()
+    t_st = time.perf_counter() - t0
+    require(st_counts == {"HQ": 4, "LQ": 4} and len(list(
+        (root / "stirling_out").rglob("*.ply"))) == 8,
+        f"Stirling {st_counts}")
+    del mods, tester
+    print(f"    NoW (python -m sr3d_torch.eval.now_protocol, flagship MICA "
+          f"widths): dry run {t_dry:.1f} s (fixture rendered, 8 images, "
+          f"median {rep['median']:.3f} mm, random weights); -ckt phase "
+          f"10's checkpoint {t_ck:.1f} s, median {rep2['median']:.3f} / "
+          f"mean {rep2['mean']:.3f} / std {rep2['std']:.3f} mm; predict + "
+          f"export {8 / t_pred:.1f} images/s (cached blobs, batch 8), "
+          f"evaluate_now {t_eval:.3f} s (host); Stirling 4 HQ + 4 LQ "
+          f"{8 / t_st:.1f} images/s (alignment included); {smi}")
+
+    # (c) dataset tools on faces rendered from the sphere FLAME
+    flame = sphere_flame(n_shape=n_shape, n_exp=int(m.n_exp), device=dev)
+    rng = np.random.RandomState(9)
+    betas = rng.randn(16, n_shape).astype(np.float32)
+    views = render_flame_views(
+        flame, betas, np.deg2rad(rng.uniform(-20, 20, 16)).astype(np.float32),
+        np.deg2rad(rng.uniform(-8, 8, 16)).astype(np.float32),
+        np.tile(np.array([[0, 0, 1]], np.float32), (16, 1)), image_size=224)
+    u8 = ((views + 1) / 2 * 255).round().astype(np.uint8)
+    faces_dir = root / "faces"
+    faces_dir.mkdir()
+    for i, f in enumerate(u8):
+        Image.fromarray(f).save(faces_dir / f"face_{i:02d}.png")
+    pre = root / "prepared"
+    t0 = time.perf_counter()
+    prepare.main(["--path", str(faces_dir), "--out", str(pre), "--size",
+                  f"{lo},{hi}", "--srpk", "--n_worker", "0"])
+    t_prep = time.perf_counter() - t0
+    for ds in (SrpkImageDataset(pre, lo, hi, need_LR=True),
+               LRHRDataset(pre, lo, hi, split="val", need_LR=True)):
+        batch = next(prefetch_to_device(iter(BatchLoader(
+            ds, 8, shuffle=False, num_workers=0)), device=dev))
+        for k, shape in (("HR", (8, hi, hi, 3)), ("SR", (8, hi, hi, 3)),
+                         ("LR", (8, lo, lo, 3))):
+            x = batch[k]
+            require(len(ds) == 16 and x.is_cuda and tuple(x.shape) == shape
+                    and float(x.min()) >= -1 and float(x.max()) <= 1
+                    and float(x.std()) > 0.05,
+                    f"prepared {k} ({type(ds).__name__}): "
+                    f"{tuple(x.shape)} {x.device}")
+    raw = root / "raw" / "FACEWAREHOUSE"
+    for a in range(4):
+        d = raw / "images" / f"actor{a}"
+        d.mkdir(parents=True)
+        for i in range(4):
+            Image.fromarray(u8[4 * a + i]).save(d / f"{i:02d}.jpg")
+        fd = raw / "FLAME_parameters" / f"actor{a}"
+        fd.mkdir(parents=True)
+        np.savez(fd / "flame.npz", betas=np.concatenate(
+            [betas[4 * a], np.zeros(int(m.n_exp), np.float32)]))
+    cre = root / "created"
+    t0 = time.perf_counter()
+    got = creation.main(["--raw-root", str(root / "raw"), "--out-root",
+                         str(cre), "--datasets", "FACEWAREHOUSE"])
+    t_cre = time.perf_counter() - t0
+    require(got == {"FACEWAREHOUSE": 16}, f"creation counts {got}")
+    index = np.load(cre / "image_paths" / "FACEWAREHOUSE.npy",
+                    allow_pickle=True).item()
+    for actor, (imgs, _) in index.items():
+        d = cre / "FACEWAREHOUSE" / "SR" / f"{lo}_{hi}" / actor
+        d.mkdir(parents=True)
+        for rel in imgs:
+            hr = Image.open(cre / rel).resize((hi, hi), Image.BICUBIC)
+            lr = hr.resize((lo, lo), Image.BICUBIC)
+            stem = Path(rel).stem
+            hr.save(d / f"{stem}_hr.png")
+            lr.save(d / f"{stem}_lr.png")
+            lr.resize((hi, hi), Image.BICUBIC).save(d / f"{stem}_sr.png")
+    jds = JointFaceDataset(cre, "FACEWAREHOUSE", K=2, lr_res=lo, hr_res=hi,
+                           n_shape=n_shape, n_exp=int(m.n_exp))
+    jb = next(prefetch_to_device(iter(BatchLoader(
+        jds, 2, shuffle=False, num_workers=0)), device=dev))
+    for k, shape in (("arcface", (2, 2, 112, 112, 3)),
+                     ("image", (2, 2, 224, 224, 3)),
+                     ("HR", (2, 2, hi, hi, 3)), ("LR", (2, 2, lo, lo, 3)),
+                     ("flame_shape", (2, 2, n_shape))):
+        x = jb[k]
+        require(x.is_cuda and tuple(x.shape) == shape
+                and float(x.min()) >= (-1 if k != "flame_shape" else -10)
+                and float(x.max()) <= (1 if k != "flame_shape" else 10),
+                f"joint {k}: {tuple(x.shape)} {x.device}")
+    want_shape = torch.from_numpy(np.stack([betas[0], betas[4]])).to(dev)
+    require(torch.equal(jb["flame_shape"][:, 0], want_shape),
+            "the joint batch's FLAME shapes are the raw tree's")
+    print(f"    prepare --srpk ({lo},{hi}) on 16 rendered 224^2 faces: {t_prep:.2f} s = "
+          f"{16 / t_prep:.1f} images/s (serial); creation --raw-root, 4 "
+          f"actors x 4: {t_cre:.2f} s = {16 / t_cre:.1f} images/s "
+          f"(center-crop alignment, no insightface); batches of the packed "
+          f"stores, the PNG dirs and the joint dataset onto the card through "
+          f"prefetch_to_device, shapes and ranges checked; {smi}")
+    shutil.rmtree(root)
+    print(f"    phase 12 in {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2352,10 +2839,15 @@ def main() -> int:
 
     # 10. the joint Trainer through the training CLI; 11. the staged
     # workflow's branch trainers on the same data
+    # 12. the evaluation and asset tools (NoW on phase 10's checkpoint)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         trainer_counts, overlay = phase_trainer(dev, flame, Path(tmp),
                                                 bare_step_s)
+        now_ckpt = Path(tmp) / "trainer_step6.npz"
+        shutil.copy(Path(tmp) / "trainer" / "out" / "trainer_smoke"
+                    / "checkpoint" / "ckpt_0000000006.npz", now_ckpt)
         staged = phase_staged(dev, Path(tmp), overlay)
+        tools_counts = phase_tools(dev, Path(tmp), now_ckpt)
 
     kernels = []
     meta = {
@@ -2386,6 +2878,7 @@ def main() -> int:
                         "trainer_launches": trainer_counts[name],
                         "sr_only_launches": staged["sr_only"][name],
                         "legacy_launches": staged["legacy"][name],
+                        "tools_launches": tools_counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

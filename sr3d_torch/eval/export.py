@@ -1,6 +1,7 @@
 """Mesh, landmark and image export (numpy and PIL only).
 
-The port's copy of ``sr3d_tpu/eval/export.py`` (writers only) plus
+The port's copy of ``sr3d_tpu/eval/export.py`` (the writers and
+``read_ply`` / ``read_obj``, which read back what they write) plus
 ``save_img``: per-sample ``mesh.ply`` / ``mesh.obj`` with vertices scaled
 ×1000 (millimetres), ``identity.npy`` shape code, ``kpt7.npy`` /
 ``kpt68.npy`` landmarks in mm.  The 7-point subset is
@@ -47,6 +48,27 @@ def write_ply(path: str | os.PathLike, vertices: np.ndarray,
         f.write(face_rec.tobytes())
 
 
+def read_ply(path: str | os.PathLike) -> tuple[np.ndarray, np.ndarray]:
+    """Read the binary-little-endian PLY :func:`write_ply` produces
+    (xyz float32 vertices + uchar-count int32 triangle faces)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    n_vert = n_face = 0
+    for line in data[:end].decode("ascii").splitlines():
+        parts = line.split()
+        if parts[:2] == ["element", "vertex"]:
+            n_vert = int(parts[2])
+        elif parts[:2] == ["element", "face"]:
+            n_face = int(parts[2])
+    verts = np.frombuffer(data, "<f4", count=n_vert * 3, offset=end
+                          ).reshape(n_vert, 3)
+    face_rec = np.frombuffer(
+        data, dtype=[("n", np.uint8), ("idx", "<i4", (3,))],
+        count=n_face, offset=end + n_vert * 12)
+    return verts.copy(), face_rec["idx"].astype(np.int32)
+
+
 def write_obj(path: str | os.PathLike, vertices: np.ndarray,
               faces: np.ndarray) -> None:
     vertices = np.asarray(vertices, dtype=np.float64)
@@ -56,6 +78,23 @@ def write_obj(path: str | os.PathLike, vertices: np.ndarray,
             f.write(f"v {v[0]:.8f} {v[1]:.8f} {v[2]:.8f}\n")
         for tri in faces + 1:  # OBJ is 1-indexed
             f.write(f"f {tri[0]} {tri[1]} {tri[2]}\n")
+
+
+def read_obj(path: str | os.PathLike) -> tuple[np.ndarray, np.ndarray]:
+    """Vertices (float32) and 0-based triangle faces (int32) of an OBJ;
+    ``f a/b/c`` entries keep their vertex index."""
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "f":
+                faces.append([int(p.split("/")[0]) - 1 for p in parts[1:4]])
+    return (np.asarray(verts, dtype=np.float32),
+            np.asarray(faces, dtype=np.int32))
 
 
 def export_prediction(

@@ -5,7 +5,11 @@ buffers and the decode is a few einsums (blendshapes, joint regression,
 skinning).  ``load_flame`` reads the licensed ``generic_model.pkl`` +
 ``landmark_embedding.npy``; ``synthetic_flame`` and ``sphere_flame`` build
 structurally identical stand-ins from the same numpy ``RandomState`` code
-as the JAX package, so a seed gives bit-identical arrays in both.
+as the JAX package, so a seed gives bit-identical arrays in both, and
+``write_reference_format_assets`` writes such a stand-in in the licensed
+files' formats.  The PCA-basis helpers (``project_to_shape_basis``,
+``compute_distance_to_basis``, ``get_std``, ``compute_closest_shape``) run
+on the model's device.
 """
 
 from __future__ import annotations
@@ -227,6 +231,73 @@ def sphere_flame(n_rings: int = 16, n_segments: int = 24, n_shape: int = 16,
     return _make(arrays, parents, n_shape, n_exp, device)
 
 
+def write_reference_format_assets(out_dir: str, n_vertices: int = 64,
+                                  seed: int = 0) -> dict[str, str]:
+    """Write a random FLAME asset set in the licensed files' on-disk
+    formats: ``generic_model.pkl`` (a dict with 400-column shapedirs,
+    kintree_table, posedirs ``[V, 3, 36]``, …), ``landmark_embedding.npy``
+    (a pickled dict) and ``FLAME_masks.pkl``, so that :func:`load_flame`
+    and the bootstrap's install run without the download.  The same files
+    as the JAX package's for a seed.
+
+    Returns ``{"flame_model": ..., "lmk_embedding": ..., "masks": ...}``.
+    """
+    import os
+
+    from .masking import synthetic_masks
+
+    rng = np.random.RandomState(seed)
+    J = 5
+    F = max(2 * n_vertices, 64)
+    kintree = np.zeros((2, J), dtype=np.uint32)
+    kintree[0] = np.array([4294967295, 0, 1, 1, 1], dtype=np.uint32)
+    kintree[1] = np.arange(J, dtype=np.uint32)
+    jreg = rng.rand(J, n_vertices).astype(np.float64)
+    jreg /= jreg.sum(1, keepdims=True)
+    lbs_w = rng.rand(n_vertices, J).astype(np.float64)
+    lbs_w /= lbs_w.sum(1, keepdims=True)
+    model = {
+        "v_template": rng.randn(n_vertices, 3) * 0.1,
+        "f": rng.randint(0, n_vertices, size=(F, 3)).astype(np.uint32),
+        # the real pickle always carries 300 shape + 100 expression
+        # columns; load_flame slices [:n_shape] and [300:]
+        "shapedirs": rng.randn(n_vertices, 3, 400) * 1e-2,
+        "posedirs": rng.randn(n_vertices, 3, (J - 1) * 9) * 1e-3,
+        "kintree_table": kintree,
+        "J_regressor": jreg,
+        "weights": lbs_w,
+    }
+
+    def bary(*shape):
+        b = rng.rand(*shape, 3).astype(np.float32)
+        return b / b.sum(-1, keepdims=True)
+
+    lmk = {
+        "static_lmk_faces_idx": rng.randint(0, F, size=(51,)).astype(np.int64),
+        "static_lmk_bary_coords": bary(51),
+        "dynamic_lmk_faces_idx": rng.randint(
+            0, F, size=(79, 17)).astype(np.int64),
+        "dynamic_lmk_bary_coords": bary(79, 17),
+        # the real npy stores these with a leading singleton dim
+        "full_lmk_faces_idx": rng.randint(0, F, size=(1, 68)).astype(np.int64),
+        "full_lmk_bary_coords": bary(1, 68),
+    }
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {
+        "flame_model": os.path.join(out_dir, "generic_model.pkl"),
+        "lmk_embedding": os.path.join(out_dir, "landmark_embedding.npy"),
+        "masks": os.path.join(out_dir, "FLAME_masks.pkl"),
+    }
+    with open(paths["flame_model"], "wb") as f:
+        pickle.dump(model, f)
+    np.save(paths["lmk_embedding"], np.asarray(lmk, dtype=object),
+            allow_pickle=True)
+    with open(paths["masks"], "wb") as f:
+        pickle.dump(synthetic_masks(n_vertices, seed=seed), f)
+    return paths
+
+
 def _find_dynamic_lmk_idx_and_bcoords(model: FlameModel,
                                       full_pose: torch.Tensor):
     """Contour-landmark table rows picked by the neck's y-rotation."""
@@ -289,3 +360,52 @@ def compute_landmarks(model: FlameModel, vertices: torch.Tensor
     return lbs_ops.vertices2landmarks(vertices, model.faces,
                                       model.full_lmk_faces_idx,
                                       model.full_lmk_bary_coords)
+
+
+# --------------------------------------------------------------------------
+# PCA-basis helpers: the shape basis is shapedirs[..., :n_shape]
+# --------------------------------------------------------------------------
+
+def _shape_basis(model: FlameModel) -> torch.Tensor:
+    """``[3·V, n_shape]``, rows in (vertex, xyz) order."""
+    return model.shapedirs[:, :, :model.n_shape].reshape(-1, model.n_shape)
+
+
+def project_to_shape_basis(model: FlameModel, shape_vector: torch.Tensor,
+                           shape_as_offset: bool = False) -> torch.Tensor:
+    """``[B, V, 3]`` vertices (or offsets from the template) → their
+    ``[B, n_shape]`` projection on the shape basis."""
+    diff = shape_vector if shape_as_offset \
+        else shape_vector - model.v_template
+    return torch.matmul(diff.reshape(diff.shape[0], -1), _shape_basis(model))
+
+
+def compute_distance_to_basis(model: FlameModel, shape_vector: torch.Tensor,
+                              shape_as_offset: bool = False
+                              ) -> torch.Tensor:
+    """``[B, V, 3]``: what of the offset the basis does not span (the
+    offset less the basis times its projection)."""
+    B, V = shape_vector.shape[0], model.n_vertices
+    diff = shape_vector if shape_as_offset \
+        else shape_vector - model.v_template
+    basis = _shape_basis(model)
+    params = torch.matmul(diff.reshape(B, -1), basis)
+    return diff - torch.matmul(params, basis.T).reshape(B, V, 3)
+
+
+def get_std(model: FlameModel) -> torch.Tensor:
+    """``[n_shape]``: the L2 norm of each shape direction."""
+    return torch.linalg.norm(_shape_basis(model), dim=0)
+
+
+def compute_closest_shape(model: FlameModel, shape_vector: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The basis shape nearest ``[B, V, 3]`` vertices, each direction
+    scaled by 1/std²: ``(vertices [B, V, 3], params [B, n_shape])``."""
+    B, V = shape_vector.shape[0], model.n_vertices
+    basis = _shape_basis(model)
+    diff = (shape_vector - model.v_template).reshape(B, -1)
+    inv = 1.0 / torch.square(torch.linalg.norm(basis, dim=0))
+    params = inv * torch.matmul(diff, basis)
+    verts = model.v_template + torch.matmul(params, basis.T).reshape(B, V, 3)
+    return verts, params

@@ -80,21 +80,27 @@ def load_jax_ema(tree: Mapping[str, Any], step: int,
                     step=int(step))
 
 
-def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
+                       shapes_only: bool = False) -> dict:
     """Dotted ``state_dict`` keys → a nested flax-layout tree of numpy
     arrays: ``weight`` → ``kernel`` (OIHW → HWIO, ``[out, in]`` →
-    ``[in, out]``), other leaves as they are."""
+    ``[in, out]``), other leaves as they are.  ``shapes_only``: each leaf
+    is a zero-strided fp32 array of the leaf's shape (no copy; the tensors
+    may be on the ``meta`` device)."""
     out: dict = {}
     for key, t in sd.items():
         *path, name = key.split(".")
-        a = t.detach().float().cpu().numpy()
+        if shapes_only:
+            a = np.broadcast_to(np.float32(0), tuple(t.shape))
+        else:
+            a = t.detach().float().cpu().numpy()
         if name == "weight":
             name = "kernel"
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         node = out
         for part in path:
             node = node.setdefault(part, {})
-        node[name] = np.ascontiguousarray(a)
+        node[name] = a if shapes_only else np.ascontiguousarray(a)
     return out
 
 

@@ -75,7 +75,10 @@ def test_import_leaves_jax_out():
             "sr3d_torch.cli.main", "sr3d_torch.models.ddpm_unet",
             "sr3d_torch.models.networks", "sr3d_torch.train.sr_only",
             "sr3d_torch.train.mica_only", "sr3d_torch.train.legacy",
-            "sr3d_torch.eval.validator"} <= set(mods)
+            "sr3d_torch.eval.validator", "sr3d_torch.eval.tester",
+            "sr3d_torch.eval.now_protocol", "sr3d_torch.data.creation",
+            "sr3d_torch.data.prepare", "sr3d_torch.utils.landmarks",
+            "sr3d_torch.utils.bootstrap"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -87,7 +90,7 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "CLEAN", out.stdout
 
 
-def test_entry_points_without_device_raise_where_no_gpu():
+def test_entry_points_without_device_raise_where_no_gpu(tmp_path):
     """No device given means the GPU; without one they raise instead of
     running on the CPU."""
     if torch.cuda.is_available():
@@ -110,4 +113,9 @@ def test_entry_points_without_device_raise_where_no_gpu():
         main(["-c", str(REPO / "configs" / "tiny_8_16_model2.yml")])
     with pytest.raises(RuntimeError, match="CUDA"):
         next(prefetch_to_device(iter([{"x": np.zeros(2)}])))
+    from sr3d_torch.eval.now_protocol import main as now_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        now_main(["--out", str(tmp_path), "-c",
+                  str(REPO / "configs" / "tiny_8_16_model2.yml")])
     assert sr3d_torch.resolve_device("cpu") == torch.device("cpu")
