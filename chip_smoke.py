@@ -25,7 +25,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    trace, B = 8, bf16; its tensor-core path, the plan printed), in fp32 at
    both strides and scale kinds and at shapes of its first-version path,
    timed on the cached path (weights quantized beforehand) and cold
-   against im2col + ``torch._int_mm`` and cuDNN's bf16 conv; the GN+Swish and attention gradients against autograd
+   against im2col + ``torch._int_mm`` and cuDNN's bf16 conv; GN+Swish,
+   attention and the int8 conv at every other shape of every
+   ``configs/*.yml`` UNet (a meta-device trace at B = 8, 4, 2, 1: H·W down
+   to 1, attention at 64, 16, 4 and 1 tokens) and at the flagship's
+   spatial bands over 2 and 4 ranks (the band GN as stats + the apply
+   kernel with the whole image's count; the int8 convs on a band and its
+   halo), checks only; the GN+Swish and attention gradients against autograd
    of their plain versions; then the whole serving step and one whole train
    step (model2, then model3 flow-through) on a tiny config, on the GPU
    against the plain versions on the CPU, and model3's gradients on the GPU
@@ -86,7 +92,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    runner's dry run (4 subjects x 2) and a run with phase 10's
    checkpoint, Stirling on 4 HQ + 4 LQ pictures; ``data/prepare.py
    --srpk`` and ``data/creation.py --raw-root`` on 16 rendered faces, a
-   batch of each onto the card; their times printed.
+   batch of each onto the card; their times printed;
+13. the parallel layer (``sr3d_torch/parallel``) with 2 ranks, each its
+   own process, sharing the one card over ``gloo`` (NCCL takes one card
+   a rank): the collectives on CUDA tensors; (a) ``Predictor(mesh=)`` at
+   the flagship config, DDIM-25, a request of 8 over the ranks' rows, bf16
+   and int8, and one UNet forward of each; (b) ``Predictor(mesh=,
+   spatial=True)``, a request of 2 with the 128 rows split 64 + 64 (the
+   band GN held to ``gn_swish_reference`` at every GN shape of the path
+   first); (c) the joint Trainer through the CLI at mesh [2, 1], 3 steps;
+   (d) at mesh [1, 2] (tensor parallel, tp_min_channels 128), 2 steps;
+   each against one process on the same weights, draws and data, within
+   ``PAR_*_TOL``; the checkpoints written by rank 0 alone in the
+   one-process layout, held to one process's leaf for leaf
+   (``PAR_CKPT_*``), one loaded by one process; a per-rank control on
+   each path, which must fail its check: the int8 scale per rank,
+   GroupNorm's moments per band, no gradient averaging, the split
+   weights gathered in reverse order; per path its seconds,
+   each rank's launches and peak memory, labelled as 2 ranks sharing one
+   H100 over gloo (overhead, not scaling).
 
 The line before the last lists the kernels as JSON (top-level numbers at
 the widest main-path shape in bf16, the shapes above under ``shapes``,
@@ -96,7 +120,10 @@ phase 9's int8 CLI run, its main path; ``cli_launches`` from that run,
 ``train_launches`` from phase 6's three steps, ``model3_launches`` from
 phase 7's three, ``trainer_launches`` from phase 10, ``sr_only_launches``
 from phase 11's SR-only CLI calls, ``legacy_launches`` from its
-``--legacy`` calls, ``tools_launches`` from phase 12's served request);
+``--legacy`` calls, ``tools_launches`` from phase 12's served request,
+``parallel_launches`` from phase 13's four paths, summed over the ranks,
+which are also gn_stats's ``launches``: the spatial request is its path;
+``repo_config_shapes``: the shapes phase 3 checked beyond the flagship's);
 the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
 and when the repository's ``sr3d_torch`` package is not beside this script.
@@ -104,6 +131,7 @@ and when the repository's ``sr3d_torch`` package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1646,34 +1674,21 @@ def _merge(base: dict, over: dict) -> dict:
     return base
 
 
-def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
-                  ) -> tuple[dict, Path]:
-    """The joint Trainer as users run it, at the flagship config's full
-    width: a synthetic joint root (8 actors × 4 images, 224² crops, 16 →
-    128, n_shape 300) and two val faces written by the port's generators,
-    the FLAME files of ``flame``; an overlay of the flagship YAML that
-    points there (width and depth unchanged; the DDIM-25 hand-off and val
+def trainer_workspace(flame, root: Path) -> tuple[Path, float]:
+    """Phase 10's data under ``root``: a synthetic joint root (8 actors ×
+    4 images, 224² crops, 16 → 128, n_shape 300), two val faces, the FLAME
+    files of ``flame``, and an overlay of the flagship YAML that points
+    there (width and depth unchanged; the DDIM-25 hand-off and val
     sampler, checkpoints every 2 steps keeping 2, ``evaluate_MICA`` every
     2, ``evaluate`` and the train visualisation every 4, a log line every
-    2); then ``sr3d_torch.cli.main.main``: train 4 steps, train 2 more
-    (a resume at step 4 that ends at 6), ``-p val -ckt`` step 6's
-    checkpoint; then ``Predictor.from_config`` serves that checkpoint, a
-    request of 8.  Checks the files of the JAX Trainer, finite losses, the
-    resume, the kernels launched; prints the Trainer's s/step, the share
-    of the loop spent waiting on the loader, the checkpoints' write and
-    read times and sizes, val s/face and peak memory.  Returns the
-    launches of the phase and the overlay (phase 11 trains on its data)."""
+    2).  Returns the overlay and the seconds the data took."""
     import yaml
 
-    from sr3d_torch.cli.main import main as cli_main
     from sr3d_torch.data.synthetic import (
         generate_synthetic_faces,
         generate_synthetic_joint_root,
     )
-    from sr3d_torch.kernels import launch_counts, reset_launch_counts
-    from sr3d_torch.serve import Predictor
 
-    root = tmp / "trainer"
     t0 = time.perf_counter()
     generate_synthetic_joint_root(root / "joint", name="SYNTH", n_actors=8,
                                   imgs_per_actor=4, img_res=224, lr_res=16,
@@ -1702,6 +1717,32 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
     with open(CONFIG) as f:
         base = yaml.safe_load(f)
     overlay.write_text(yaml.safe_dump(_merge(base, over)))
+    return overlay, t_data
+
+
+def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
+                  ) -> tuple[dict, Path]:
+    """The joint Trainer as users run it, at the flagship config's full
+    width: a synthetic joint root (8 actors × 4 images, 224² crops, 16 →
+    128, n_shape 300) and two val faces written by the port's generators,
+    the FLAME files of ``flame``; an overlay of the flagship YAML that
+    points there (width and depth unchanged; the DDIM-25 hand-off and val
+    sampler, checkpoints every 2 steps keeping 2, ``evaluate_MICA`` every
+    2, ``evaluate`` and the train visualisation every 4, a log line every
+    2); then ``sr3d_torch.cli.main.main``: train 4 steps, train 2 more
+    (a resume at step 4 that ends at 6), ``-p val -ckt`` step 6's
+    checkpoint; then ``Predictor.from_config`` serves that checkpoint, a
+    request of 8.  Checks the files of the JAX Trainer, finite losses, the
+    resume, the kernels launched; prints the Trainer's s/step, the share
+    of the loop spent waiting on the loader, the checkpoints' write and
+    read times and sizes, val s/face and peak memory.  Returns the
+    launches of the phase and the overlay (phase 11 trains on its data)."""
+    from sr3d_torch.cli.main import main as cli_main
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.serve import Predictor
+
+    root = tmp / "trainer"
+    overlay, t_data = trainer_workspace(flame, root)
     out = root / "out" / "trainer_smoke"
     print(f"[10] Trainer: joint root (8 actors x 4 images, 224^2, "
           f"16->128), 2 val faces and the FLAME files written in "
@@ -2711,6 +2752,811 @@ def phase_tools(dev, tmp: Path, trainer_ckpt: Path,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 3 (cont.): the kernels at every repo config's shapes and at the spatial
+# bands of the flagship
+# ---------------------------------------------------------------------------
+
+def trace_config(path: Path, B: int, quant: bool) -> dict:
+    """The GN+Swish inputs (B, C, H, W, groups), attention inputs (B, HW,
+    C) and int8 convs (B, Cin, H, W, O, stride, scale) of one forward of the UNet
+    of the config at ``path`` at its output resolution, batch ``B``
+    (``quant``: the serving CLI's int8 default): a meta-device trace."""
+    import sr3d_torch.models.sr3_unet as unet_mod
+    import sr3d_torch.ops.quant as quant_mod
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+
+    cfg = update_cfg(get_cfg_defaults(), str(path))
+    if quant:
+        cfg.sr.model.unet.quant_min_res = 1
+        cfg.sr.model.unet.quant_resample = True
+    hr = int(cfg.sr.datasets.val.r_resolution)
+    seen = {"gn": set(), "attn": set(), "int8": set()}
+
+    def gn(x, gamma, beta, groups, eps=1e-5):
+        seen["gn"].add((*x.shape, groups))
+        return x
+
+    def attn(q, k, v, channels=None):
+        seen["attn"].add(tuple(q.shape))
+        return q
+
+    def int8(x, wk, w_scale, bias=None, *, stride=1, padding=1,
+             out_dtype=None, a_scale=None):
+        Bx, C, H, W = x.shape
+        seen["int8"].add((Bx, C, H, W, wk.shape[0], stride,
+                          "dynamic" if a_scale is None else "static"))
+        return x.new_empty(Bx, wk.shape[0], (H - 1) // stride + 1,
+                           (W - 1) // stride + 1)
+
+    saved = (unet_mod.gn_swish, unet_mod.spatial_attention,
+             quant_mod.int8_conv_quantized)
+    unet_mod.gn_swish, unet_mod.spatial_attention = gn, attn
+    quant_mod.int8_conv_quantized = int8
+    try:
+        with torch.device("meta"), torch.no_grad():
+            unet = unet_mod.unet_from_config(cfg.sr.model.unet,
+                                             cfg.sr.model.diffusion)
+            unet(torch.zeros(B, int(cfg.sr.model.unet.in_channel), hr, hr),
+                 torch.zeros(B, 1), quant=quant)
+    finally:
+        (unet_mod.gn_swish, unet_mod.spatial_attention,
+         quant_mod.int8_conv_quantized) = saved
+    return seen
+
+
+def phase_config_shapes(dev) -> dict:
+    """GN+Swish, attention and the int8 conv against their plain versions
+    at the shapes of every ``configs/*.yml`` UNet not checked above (B = 8,
+    4, 2, 1; int8 at B = 8 and 1), among them H·W of 1 and 4 and attention
+    at 16 and 1 tokens; then the spatial path's bands of the flagship over
+    2 and 4 ranks, emulated in one process: GN+Swish as ``gn_stats`` of
+    each band, the moments summed, the apply kernel over each band with
+    the whole image's count (against ``gn_swish_reference`` of the whole
+    image), and the int8 convs on a band with its halo rows.  bf16, checks
+    only (no timing).  Returns {kernel: [shapes checked]}."""
+    from sr3d_torch.kernels import gn_stats, gn_swish, spatial_attention
+    from sr3d_torch.kernels.attention import spatial_attention_reference
+    from sr3d_torch.kernels.groupnorm_swish import (gn_swish_apply,
+                                                    gn_swish_reference)
+    from sr3d_torch.kernels.int8_conv import (int8_conv_quantized,
+                                              int8_conv_reference,
+                                              prepare_weight)
+
+    dtype = torch.bfloat16
+    configs = sorted((ROOT / "configs").glob("*.yml"))
+    gn_all, attn_all, int8_all = set(), set(), set()
+    for path in configs:
+        for B in MAIN_PATH_BATCHES:
+            s = trace_config(path, B, quant=False)
+            gn_all |= s["gn"]
+            attn_all |= s["attn"]
+        for B in (8, 1):
+            int8_all |= trace_config(path, B, quant=True)["int8"]
+    done_gn = {(*s, 32) for s in set(main_path_gn_shapes()) | set(GN_SHAPES)}
+    done_int8 = set(main_path_int8_convs())
+    new_gn = sorted(gn_all - done_gn, key=lambda s: -math.prod(s[:4]))
+    new_attn = sorted(attn_all - set(ATTN_SHAPES))
+    new_int8 = sorted(int8_all - done_int8, key=lambda s: -math.prod(s[:5]))
+    atol, rtol = GN_TOL[dtype]
+    worst = {"gn_swish": 0.0, "spatial_attention": 0.0, "int8_conv": 0.0,
+             "gn_band": 0.0}
+    for (*shape, G) in new_gn:
+        g = torch.Generator(device=dev).manual_seed(7)
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+        gamma = torch.rand(shape[1], generator=g, device=dev) + 0.5
+        beta = torch.randn(shape[1], generator=g, device=dev) * 0.1
+        y, ref = gn_swish(x, gamma, beta, G), gn_swish_reference(
+            x, gamma, beta, G)
+        e = float((y.float() - ref.float()).abs().max())
+        require(torch.allclose(y.float(), ref.float(), atol=atol, rtol=rtol),
+                f"gn_swish disagrees at config shape {shape} G={G}: {e}")
+        worst["gn_swish"] = max(worst["gn_swish"], e)
+    for (B, HW, C) in new_attn:
+        g = torch.Generator(device=dev).manual_seed(8)
+        q, k, v = (torch.randn(B, HW, C, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        out = spatial_attention(q, k, v)
+        ref = spatial_attention_reference(q, k, v, C ** -0.5)
+        e = float((out.float() - ref.float()).abs().max())
+        require(torch.allclose(out.float(), ref.float(), atol=atol,
+                               rtol=rtol),
+                f"attention disagrees at config shape {(B, HW, C)}: {e}")
+        worst["spatial_attention"] = max(worst["spatial_attention"], e)
+
+    def int8_check(B, C, H, W, O, stride, scale, what):
+        g = torch.Generator(device=dev).manual_seed(9)
+        w = torch.randn(O, C, 3, 3, generator=g, device=dev) * (9 * C) ** -.5
+        x = (torch.randn(B, C, H, W, generator=g, device=dev) * 2).to(dtype)
+        b = torch.randn(O, generator=g, device=dev) * 0.1
+        a = torch.tensor(0.05, device=dev) if scale == "static" else None
+        out = int8_conv_quantized(x, *prepare_weight(w), b, stride=stride,
+                                  out_dtype=dtype, a_scale=a)
+        ref = int8_conv_reference(x, w, b, stride=stride, out_dtype=dtype,
+                                  a_scale=a)
+        e = float((out.float() - ref.float()).abs().max())
+        require(torch.equal(out, ref), f"int8_conv differs from its plain "
+                f"version at {what} {(B, C, H, W)}->{O} stride {stride}: "
+                f"{e}")
+        worst["int8_conv"] = max(worst["int8_conv"], e)
+
+    for (B, C, H, W, O, stride, scale) in new_int8:
+        int8_check(B, C, H, W, O, stride, scale, "config shape")
+    # the spatial bands of the flagship: GN over bands of 2 and 4 ranks at
+    # the spatial request's batch (2), the int8 convs on a band + its halo
+    bands_gn, bands_int8 = [], set()
+    for m in (2, 4):
+        for (B, C, H, W, G) in sorted(trace_config(CONFIG, 2,
+                                                   False)["gn"]):
+            g = torch.Generator(device=dev).manual_seed(10)
+            x = (torch.randn(B, C, H, W, generator=g, device=dev) * 2
+                 + 0.5).to(dtype)
+            x[:, :, H // 2:] += 1.0   # bands whose means differ
+            gamma = torch.rand(C, generator=g, device=dev) + 0.5
+            beta = torch.randn(C, generator=g, device=dev) * 0.1
+            parts = x.chunk(m, dim=2)
+            stats = [gn_stats(p.contiguous()) for p in parts]
+            s = sum(t[0] for t in stats)
+            q = sum(t[1] for t in stats)
+            y = torch.cat([gn_swish_apply(p.contiguous(), s, q, gamma, beta,
+                                          G, count=H * W) for p in parts], 2)
+            ref = gn_swish_reference(x, gamma, beta, G)
+            e = float((y.float() - ref.float()).abs().max())
+            require(torch.allclose(y.float(), ref.float(), atol=atol,
+                                   rtol=rtol),
+                    f"band GN over {m} ranks disagrees at {(B, C, H, W)}: "
+                    f"{e}")
+            worst["gn_band"] = max(worst["gn_band"], e)
+            bands_gn.append((m, B, C, H // m, W))
+        for (B, C, H, W, O, stride, scale) in trace_config(CONFIG, 2,
+                                                           True)["int8"]:
+            ext = H // m + 2    # the band and its halo rows (stride 2: a
+            bands_int8.add((B, C, ext, W, O, stride, scale))  # zero, one)
+    for c in sorted(bands_int8):
+        int8_check(*c, "band + halo")
+    print(f"  every repo config ({len(configs)} YAMLs, B = "
+          f"{', '.join(map(str, MAIN_PATH_BATCHES))}): {len(new_gn)} more "
+          f"GN+Swish shapes (H*W down to "
+          f"{min(s[2] * s[3] for s in new_gn) if new_gn else '-'}; groups "
+          f"{sorted({s[4] for s in new_gn})}), "
+          f"{len(new_attn)} attention shapes (tokens "
+          f"{sorted({s[1] for s in new_attn})}), {len(new_int8)} int8 convs "
+          f"checked; max err gn_swish {worst['gn_swish']:.3g}, attention "
+          f"{worst['spatial_attention']:.3g} (atol {atol}, rtol {rtol}), "
+          f"int8_conv bit for bit")
+    print(f"  the flagship's spatial bands (2 and 4 ranks, B = 2): "
+          f"{len(bands_gn)} band GNs (gn_stats per band, moments summed, "
+          f"the apply kernel with the whole image's count) vs "
+          f"gn_swish_reference of the whole image, max err "
+          f"{worst['gn_band']:.3g}; {len(bands_int8)} int8 convs on a band "
+          f"+ halo, bit for bit")
+    return {"gn_swish": [list(s) for s in new_gn],
+            "spatial_attention": [list(s) for s in new_attn],
+            "int8_conv": [list(s[:6]) for s in new_int8],
+            "gn_band": [list(s) for s in bands_gn],
+            "int8_band": [list(s[:6]) for s in sorted(bands_int8)],
+            "max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# 13. the parallel layer: several ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+PAR_WORLD = 2
+# sharded against one process on the same weights and draws, bf16 on the
+# card: a band's or a half batch's convolutions round unlike the whole
+# one's, and the sampler carries that through its 25 steps, int8 more so
+# (a rounding difference moves an activation across a quantization step).
+# Each limit sits between the sound run's reading and its per-rank
+# control's where the control shows (readings of this script on the
+# H100 80GB HBM3, 700 W, equal in every run): one UNet forward, max
+# error of the output's largest entry (bf16 0.0108; int8 0.0027 against
+# 0.147 with the int8 scale per rank); the
+# request's uint8 image by a mean of levels (bf16 1.127 DP, 1.120 spatial
+# against 3.718 with GroupNorm per band; int8 4.948, and 5.022 with the
+# scale per rank: the request cannot see that, the forward can), the
+# vertices and the shape code by an absolute error
+PAR_FORWARD_TOL = {"bf16": 5e-2, "int8": 2e-2}
+PAR_SERVE_TOL = {"bf16": {"u8_mean": 2.0, "verts": 5e-3, "identity": 2e-2},
+                 "int8": {"u8_mean": 6.0, "verts": 5e-3, "identity": 2e-2}}
+# the losses of sharded steps against one rank's (DP 3.3e-4, TP 1.1e-4;
+# a run without gradient averaging 2.2e-4: the losses cannot see it after
+# one update, the checkpoint can)
+PAR_TRAIN_RTOL = 1e-3
+# a checkpoint of a sharded run against one process's, leaf for leaf: the
+# integer leaves equal; at most PAR_CKPT_OFF of the float elements
+# further than PAR_CKPT_REL of their leaf's largest entry, and none
+# further than PAR_CKPT_WORST × (2·lr·steps + PAR_CKPT_REL × that entry)
+# (2·lr·steps: Adam's reach in the run's updates, where an element whose
+# gradient is rounding noise moves ~lr either way).  bf16 gradients at a
+# half batch round unlike the whole one's, so the CPU tests' 1e-5 and 1
+# do not hold here: the sound DP / TP runs read 0.0249 / 0.0284 off and
+# 58 / 66 worst, the controls (no gradient averaging; the split weights
+# gathered in reverse order) 0.127 / 0.729 and 253 / 154
+PAR_CKPT_REL = 1e-2
+PAR_CKPT_OFF = 0.06
+PAR_CKPT_WORST = 120
+# the relative gaps at which the share of elements off is also printed
+PAR_CKPT_GRID = (1e-4, 1e-3, 1e-2)
+
+
+def _par_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _par_rank(rank: int, world: int, port: int, spec_path: str) -> None:
+    """One rank of phase 13: its own process on the shared card, the
+    ``gloo`` group, then the jobs of ``spec_path`` in turn; each job's
+    results (and this rank's launches, seconds and peak memory) saved
+    beside it."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = {}
+        for job in spec["jobs"]:
+            out[job] = PAR_JOBS[job](spec, dev)
+            dist.barrier()
+        torch.save(out, Path(spec["dir"]) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_measure(dev, fn):
+    """``fn()`` with the launch counters at 0 before and read after: its
+    value, wall seconds, launches and peak device memory (GiB)."""
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    value = fn()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    return value, dt, counts, peak
+
+
+def _par_serve(spec, dev, spatial: bool, int8: bool, n: int):
+    from sr3d_torch import parallel as par
+    from sr3d_torch.models.flame import synthetic_flame
+    from sr3d_torch.serve import Predictor, apply_serving_flags
+
+    cfg = spec["serve_cfg"].clone()
+    if int8:
+        apply_serving_flags(cfg)
+    flame = synthetic_flame(**spec["flame_kw"], device=dev)
+    mesh = par.make_mesh((1, PAR_WORLD) if spatial else (PAR_WORLD, 1))
+    p = Predictor.from_config(cfg, init_seed=0, batch_size=n, flame=flame,
+                              device=dev, mesh=mesh, spatial=spatial)
+    p.predict(spec["req"][:n])     # warm up (cuDNN plans, weight casts)
+    return _par_measure(dev, lambda: p.predict(spec["req"][:n])) + (p,)
+
+
+def _par_collectives(dev) -> dict:
+    """The port's collectives on this device over the gloo group, on
+    values whose results are known: a sum and a max all-reduce, an
+    all-gather, and the gradients of the all-gather and the sum."""
+    import torch.distributed as dist
+
+    from sr3d_torch import parallel as par
+    from sr3d_torch.parallel.collectives import (all_gather, all_reduce_max,
+                                                 all_reduce_sum)
+
+    axis = par.make_mesh((PAR_WORLD, 1)).axis("data")
+    r, n = dist.get_rank(), PAR_WORLD
+    x = torch.full((3,), float(r + 1), device=dev, requires_grad=True)
+    s = all_reduce_sum(x, axis)
+    g = all_gather(x[None], 0, axis)
+    (s.sum() + (g * torch.arange(n, device=dev)[:, None]).sum()).backward()
+    want_grad = n + n * r      # the sum's, and the gather's weight summed
+    return {"sum": bool((s == n * (n + 1) / 2).all()),
+            "max": float(all_reduce_max(torch.tensor(float(r), device=dev),
+                                        axis)) == n - 1,
+            "gather": bool((g[:, 0] == torch.arange(1, n + 1, device=dev))
+                           .all()),
+            "grad": bool((x.grad == want_grad).all())}
+
+
+def _par_unet_forward(spec, dev, p, quant: bool) -> torch.Tensor:
+    """One UNet forward of the Predictor's weights on the seeded global
+    input ``par_unet_input``, this rank's rows, gathered."""
+    from sr3d_torch import parallel as par
+    from sr3d_torch.parallel import layout as lay
+
+    x, t = par_unet_input(spec["req"].shape[0], p.hr, dev)
+    with lay.use(par.data_layout(par.make_mesh((PAR_WORLD, 1)))), \
+            torch.no_grad():
+        return lay.gather(p.modules.unet(lay.local(x), lay.local(t),
+                                         quant=quant)).float().cpu()
+
+
+def par_unet_input(n: int, hr: int, dev):
+    """A seeded UNet input whose second half of rows is 16× the first's, so
+    that the ranks' parts differ in their largest entry (the int8
+    scale)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(n, 6, hr, hr, generator=g, device=dev)
+    x[n // 2:] *= 16
+    return x, torch.full((n, 1), 0.5, device=dev)
+
+
+def _par_job_dp_serve(spec, dev):
+    """(a) the collectives on the card; the flagship's DDIM-25 request (8
+    faces, batch 8) over the ranks' rows, bf16 and int8, and one UNet
+    forward of each on a fixed input."""
+    out = {"collectives": _par_collectives(dev)}
+    for tag in ("bf16", "int8", "int8_per_rank"):
+        # the control: each rank's activations quantized with its own
+        # part's scale
+        with _control(tag == "int8_per_rank",
+                      "sr3d_torch.parallel.layout.amax", lambda x: x):
+            res = _par_serve(spec, dev, False, tag != "bf16",
+                             len(spec["req"]))
+            out[tag] = res[:4] + (_par_unet_forward(spec, dev, res[4],
+                                                    tag != "bf16"),)
+    return out
+
+
+def _control(on: bool, target: str, value):
+    """A per-rank control: ``target`` (a module attribute) replaced by
+    ``value`` for the block where ``on``."""
+    from unittest import mock
+
+    return mock.patch(target, value) if on else contextlib.nullcontext()
+
+
+def _par_job_spatial_serve(spec, dev):
+    """(b) the band GN at every GN shape of the spatial path, then a
+    request of 2 with the image's 128 rows split over 2 ranks."""
+    from sr3d_torch import parallel as par
+    from sr3d_torch.kernels.groupnorm_swish import gn_swish_reference
+    from sr3d_torch.models.sr3_unet import GroupNormSwish
+    from sr3d_torch.parallel import layout as lay
+
+    mesh = par.make_mesh((1, PAR_WORLD))
+    G = int(spec["serve_cfg"].sr.model.unet.norm_groups)
+    errs = {}
+    with lay.use(par.spatial_layout(mesh)), torch.no_grad():
+        for (B, C, H, W) in spec["spatial_gn_shapes"]:
+            g = torch.Generator(device=dev).manual_seed(11)
+            x = (torch.randn(B, C, H, W, generator=g, device=dev) * 2
+                 + 0.5).to(torch.bfloat16)
+            x[:, :, H // 2:] += 1.0
+            m = GroupNormSwish(C, G).to(dev)
+            m.scale.data = torch.rand(C, generator=g, device=dev) + 0.5
+            m.bias.data = torch.randn(C, generator=g, device=dev) * 0.1
+            y = lay.gather(m(lay.local(x, row_dim=2)), row_dim=2)
+            ref = gn_swish_reference(x, m.scale, m.bias, G)
+            atol, rtol = GN_TOL[torch.bfloat16]
+            errs[(B, C, H, W)] = (
+                float((y.float() - ref.float()).abs().max()),
+                torch.allclose(y.float(), ref.float(), atol=atol, rtol=rtol))
+    out = {"gn_errs": errs,
+           "bf16": _par_serve(spec, dev, True, False, 2)[:4]}
+    # the control: GroupNorm's moments over the band alone (the band's
+    # sums scaled to the image's count)
+    with _control(True, "sr3d_torch.models.sr3_unet.all_reduce_sum",
+                  lambda t, axis: t * axis.size):
+        out["per_band"] = _par_serve(spec, dev, True, False, 2)[:4]
+    return out
+
+
+def _par_cli(spec, dev, name: str, steps: int):
+    from sr3d_torch.cli.main import main as cli_main
+
+    argv = ["-p", "train", "-c", spec["overlays"][name], "--max-steps",
+            str(steps)]
+    _, dt, counts, peak = _par_measure(dev, lambda: cli_main(argv,
+                                                             device=dev))
+    return None, dt, counts, peak
+
+
+def _par_job_trainer_dp(spec, dev):
+    """(c) the joint Trainer through the CLI at mesh [2, 1], 3 steps."""
+    return _par_cli(spec, dev, "dp", 3)
+
+
+def _par_job_trainer_dp_control(spec, dev):
+    """The control of (c): mesh [2, 1] with each rank stepping on its own
+    rows' gradient (no averaging over the data axis), 2 steps."""
+    with _control(True, "sr3d_torch.train.joint.average_gradients",
+                  lambda params: None):
+        return _par_cli(spec, dev, "dp_control", 2)
+
+
+def _par_job_trainer_tp(spec, dev):
+    """(d) the joint Trainer through the CLI at mesh [1, 2], tp_min_channels
+    128, 2 steps."""
+    return _par_cli(spec, dev, "tp", 2)
+
+
+PAR_JOBS = {"dp_serve": _par_job_dp_serve,
+            "spatial_serve": _par_job_spatial_serve,
+            "trainer_dp": _par_job_trainer_dp,
+            "trainer_dp_control": _par_job_trainer_dp_control,
+            "trainer_tp": _par_job_trainer_tp}
+
+
+def par_spawn(spec: dict, tmp: Path) -> list[dict]:
+    """Run ``spec["jobs"]`` on ``PAR_WORLD`` ranks; every rank's exit code
+    is checked and a failed rank's error text raised; returns each rank's
+    results."""
+    import torch.multiprocessing as mp
+
+    spec = dict(spec, dir=str(tmp))
+    spec_path = tmp / "spec.pt"
+    torch.save(spec, spec_path)
+    ctx = mp.start_processes(_par_rank, args=(PAR_WORLD, _par_free_port(),
+                                              str(spec_path)),
+                             nprocs=PAR_WORLD, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(PAR_WORLD)]
+
+
+def _losses(run: Path) -> list[float]:
+    rows = [json.loads(x) for x in
+            (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+    return [r["value"] for r in rows if r["tag"] == "train/loss"]
+
+
+def _ckpt_gap(mine: list, theirs: list, steps: int, lr: float,
+              rels=PAR_CKPT_GRID) -> dict:
+    """A checkpoint's leaves against one process's, by the rule of
+    ``PAR_CKPT_REL``: for each relative gap ``rel`` in ``rels``, (the
+    share of float elements further than ``rel`` of their leaf's largest
+    entry, the largest max|a − b| / (2·lr·steps + rel·max|b|) of a float
+    leaf, which ``PAR_CKPT_WORST`` bounds);
+    ``"ints"``: the integer leaves equal; ``"widest"``: (leaf, shape,
+    max|b|, max|a − b|) of the leaf with the largest gap of its scale."""
+    off = dict.fromkeys(rels, 0)
+    worst = dict.fromkeys(rels, 0.0)
+    total, ints, widest, ratio = 0, True, (None, None, 0.0, 0.0), -1.0
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        if a.dtype.kind != "f":
+            ints &= a.shape == b.shape and bool(np.array_equal(a, b))
+            continue
+        d = np.abs(a - b)
+        scale, dmax = float(np.abs(b).max()), float(d.max())
+        if dmax / max(scale, 1e-30) > ratio:
+            widest, ratio = (i, a.shape, scale, dmax), dmax / max(scale, 1e-30)
+        for rel in rels:
+            worst[rel] = max(worst[rel], dmax / (2 * lr * steps
+                                                 + rel * scale))
+            off[rel] += int((d > rel * scale + 1e-12).sum())
+        total += d.size
+    return {"share": {r: off[r] / max(total, 1) for r in rels},
+            "worst": worst, "ints": ints, "widest": widest}
+
+
+def _ckpt_ok(gap: dict) -> bool:
+    return (gap["ints"] and gap["share"][PAR_CKPT_REL] <= PAR_CKPT_OFF
+            and gap["worst"][PAR_CKPT_REL] <= PAR_CKPT_WORST)
+
+
+def _ckpt_text(gap: dict) -> str:
+    i, shape, scale, dmax = gap["widest"]
+    return ("share off at rel " + ", ".join(
+        f"{r:g}: {v:.3g}" for r, v in gap["share"].items())
+        + "; worst leaf gap / (2·lr·steps + rel·scale) at rel "
+        + ", ".join(f"{r:g}: {v:.3g}" for r, v in gap["worst"].items())
+        + f"; widest gap: leaf {i} {tuple(shape) if shape else ''}, "
+        f"largest entry {scale:.3g}, gap {dmax:.3g}")
+
+
+def _swapped(leaves: list, min_channels: int) -> list:
+    """A file's leaves as a wrong gather would write them: the ranks'
+    parts of every split weight (and moment) in reverse order, i.e. the
+    last dim (output channels in the JAX layout) of every float leaf of
+    ≥ 2 dims at least ``min_channels`` wide cut in ``PAR_WORLD`` and
+    reversed."""
+    return [np.concatenate(np.split(a, PAR_WORLD, -1)[::-1], -1)
+            if a.dtype.kind == "f" and a.ndim >= 2
+            and a.shape[-1] >= min_channels and a.shape[-1] % PAR_WORLD == 0
+            else a for a in leaves]
+
+
+def _u8_err(a: np.ndarray, b: np.ndarray) -> tuple[float, int]:
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return float(d.mean()), int(d.max())
+
+
+def phase_parallel(dev, flame_kw: dict, tmp: Path, overlay: Path,
+                   config: Path = CONFIG, n_req: int = 8) -> dict:
+    """Phase 13: the parallel layer with ``PAR_WORLD`` ranks sharing the
+    one card over ``gloo`` (NCCL takes one card a rank): (a) DP serving,
+    (b) spatial serving, (c) the Trainer at mesh [2, 1], (d) at [1, 2]
+    (tensor parallel), each against one process on the same weights,
+    draws and data.  Returns the launches of each path (summed over the
+    ranks)."""
+    import yaml
+
+    from sr3d_torch.cli.main import main as cli_main
+    from sr3d_torch.models.flame import synthetic_flame
+    from sr3d_torch.serve import Predictor, apply_serving_flags
+    from sr3d_torch.train.checkpoint import load_train_state, npz_leaves
+    from sr3d_torch.train.joint import build_joint, init_train_state
+
+    label = f"{PAR_WORLD} ranks sharing one H100 over gloo"
+    print(f"[13] parallel: {label} (NCCL takes one card a rank; these "
+          f"times measure the layer's overhead, not scaling)")
+    cfg = serving_cfg("ddim")
+    if config != CONFIG:
+        from sr3d_torch.config import get_cfg_defaults, update_cfg
+        cfg = update_cfg(get_cfg_defaults(), str(config))
+    req = np.random.RandomState(5).randint(0, 256, (n_req, 16, 16, 3),
+                                           np.uint8)
+    req = req[:, :int(cfg.sr.datasets.val.l_resolution),
+              :int(cfg.sr.datasets.val.l_resolution)]
+    flame = synthetic_flame(**flame_kw, device=dev)
+
+    # one-process references: the same weights (init_seed 0) and draws
+    refs, ref_fwd = {}, {}
+    for tag, n, int8 in (("bf16", n_req, False), ("int8", n_req, True),
+                         ("spatial", 2, False)):
+        c = apply_serving_flags(cfg.clone()) if int8 else cfg
+        p = Predictor.from_config(c, init_seed=0, batch_size=n, flame=flame,
+                                  device=dev)
+        p.predict(req[:n])
+        refs[tag] = p.predict(req[:n])
+        if tag != "spatial":
+            with torch.no_grad():
+                ref_fwd[tag] = p.modules.unet(
+                    *par_unet_input(n, p.hr, dev), quant=int8).float().cpu()
+        del p
+    spatial_gn = sorted(s[:4] for s in trace_config(config, 2, False)["gn"])
+
+    # the Trainer's runs: one process (3 steps, checkpoints at 2 and 3),
+    # then the ranks' DP (3 steps) and TP (2 steps) runs, final checkpoints
+    base = yaml.safe_load(overlay.read_text())
+    overlays = {}
+    for name, mesh, ckpt_every in (("one", [1, 1], 2), ("dp", [2, 1], 0),
+                                   ("dp_control", [2, 1], 0),
+                                   ("tp", [1, 2], 0)):
+        tree = _merge(json.loads(json.dumps(base)), {
+            "name": f"par_{name}", "output_dir": str(tmp / "out"),
+            "mica": {"train": {"eval_steps": 0}},
+            "train": {"checkpoint_steps": ckpt_every, "eval_steps": 0,
+                      "vis_steps": 0, "log_steps": 1,
+                      "checkpoint_max_keep": 10},
+            "tpu": {"mesh_shape": mesh, "tp_min_channels": 128}})
+        overlays[name] = str(tmp / f"par_{name}.yml")
+        Path(overlays[name]).write_text(yaml.safe_dump(tree))
+    _, t_one, _, _ = _par_measure(dev, lambda: cli_main(
+        ["-p", "train", "-c", overlays["one"], "--max-steps", "3"],
+        device=dev))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    spec = {"device": str(dev), "serve_cfg": cfg, "flame_kw": flame_kw,
+            "req": req, "spatial_gn_shapes": spatial_gn,
+            "overlays": overlays,
+            "jobs": ["dp_serve", "spatial_serve", "trainer_dp",
+                     "trainer_dp_control", "trainer_tp"]}
+    t0 = time.perf_counter()
+    ranks = par_spawn(spec, tmp)
+    t_ranks = time.perf_counter() - t0
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # (a) DP serving
+    coll = [res["dp_serve"]["collectives"] for res in ranks]
+    require(all(all(c.values()) for c in coll),
+            f"(a) the collectives over gloo on {dev}: {coll}")
+    print(f"    (a) collectives on {dev} tensors over gloo (sum, max, "
+          f"all-gather and their gradients): right on every rank")
+    for tag in ("bf16", "int8"):
+        errs = []
+        for r, res in enumerate(ranks):
+            out, dt, c, peak, fwd = res["dp_serve"][tag]
+            e_fwd = float((fwd - ref_fwd[tag]).abs().max()
+                          / ref_fwd[tag].abs().max())
+            require(e_fwd <= PAR_FORWARD_TOL[tag],
+                    f"(a) one {tag} UNet forward over the ranks' rows vs "
+                    f"one process: max err {e_fwd:.3g} of the output's "
+                    f"scale, tolerance {PAR_FORWARD_TOL[tag]}")
+            if dev.type == "cuda":
+                check_outputs(out, n_req, flame.n_vertices,
+                              int(cfg.mica.model.n_shape))
+            u8 = _u8_err(out["sr_u8"], refs[tag]["sr_u8"])
+            ev = float(np.abs(out["verts"] - refs[tag]["verts"]).max())
+            ei = float(np.abs(out["identity"] - refs[tag]["identity"]).max())
+            tol = PAR_SERVE_TOL[tag]
+            require(u8[0] <= tol["u8_mean"] and ev <= tol["verts"]
+                    and ei <= tol["identity"],
+                    f"(a) DP {tag} rank {r} vs one process: uint8 mean/max "
+                    f"{u8}, verts {ev}, identity {ei}; tolerance {tol}")
+            add(c)
+            errs.append(f"rank {r}: {dt * 1e3:.1f} ms, peak {peak:.2f} GiB,"
+                        f" launches {c}")
+        want_int8 = tag == "int8"
+        require((ranks[0]["dp_serve"][tag][2]["int8_conv"] > 0) == want_int8
+                and ranks[0]["dp_serve"][tag][2]["gn_swish"] > 0,
+                f"(a) {tag} launches {ranks[0]['dp_serve'][tag][2]}")
+        print(f"    (a) DP serving {tag}, DDIM-25, request of {n_req} over "
+              f"{PAR_WORLD} ranks' rows ({label}): one UNet forward vs one "
+              f"process {e_fwd:.3g} of its scale (tolerance "
+              f"{PAR_FORWARD_TOL[tag]}); the request vs one process uint8 "
+              f"mean/max {u8[0]:.3f}/{u8[1]}, verts {ev:.3g}, identity "
+              f"{ei:.3g} (tolerance {PAR_SERVE_TOL[tag]}); "
+              + "; ".join(errs))
+    # the control: each rank's own int8 scale
+    ctl = []
+    for res in ranks:
+        out, _, _, _, fwd = res["dp_serve"]["int8_per_rank"]
+        ctl.append((float((fwd - ref_fwd["int8"]).abs().max()
+                          / ref_fwd["int8"].abs().max()),
+                    _u8_err(out["sr_u8"], refs["int8"]["sr_u8"])[0]))
+    c_fwd, c_u8 = max(c[0] for c in ctl), max(c[1] for c in ctl)
+    require(c_fwd > PAR_FORWARD_TOL["int8"],
+            f"(a) control: with the int8 scale per rank one UNet forward "
+            f"is {c_fwd:.3g} of its scale from one process, within the "
+            f"tolerance {PAR_FORWARD_TOL['int8']}: the check cannot see it")
+    print(f"    (a) control, the int8 scale per rank: one UNet forward vs "
+          f"one process {c_fwd:.3g} of its scale (must exceed "
+          f"{PAR_FORWARD_TOL['int8']}); the request's uint8 mean "
+          f"{c_u8:.3f} (tolerance {PAR_SERVE_TOL['int8']['u8_mean']})")
+
+    # (b) spatial serving
+    gn = [v for res in ranks for v in res["spatial_serve"]["gn_errs"]
+          .values()]
+    gn_err = max(e for e, _ in gn)
+    require(all(ok for _, ok in gn), f"(b) band GN disagrees with "
+            f"gn_swish_reference: max err {gn_err} (GN_TOL bf16)")
+    lines = []
+    for r, res in enumerate(ranks):
+        out, dt, c, peak = res["spatial_serve"]["bf16"]
+        u8 = _u8_err(out["sr_u8"], refs["spatial"]["sr_u8"])
+        ev = float(np.abs(out["verts"] - refs["spatial"]["verts"]).max())
+        ei = float(np.abs(out["identity"]
+                          - refs["spatial"]["identity"]).max())
+        tol = PAR_SERVE_TOL["bf16"]
+        require(u8[0] <= tol["u8_mean"] and ev <= tol["verts"]
+                and ei <= tol["identity"],
+                f"(b) spatial rank {r} vs one process: uint8 mean/max {u8}, "
+                f"verts {ev}, identity {ei}; tolerance {tol}")
+        require(c["gn_stats"] > 0 and c["gn_swish"] > 0
+                and c["spatial_attention"] > 0,
+                f"(b) spatial launches {c}")
+        add(c)
+        lines.append(f"rank {r}: {dt * 1e3:.1f} ms, peak {peak:.2f} GiB, "
+                     f"launches {c}")
+    print(f"    (b) spatial serving bf16, request of 2, 128 rows split "
+          f"{128 // PAR_WORLD} x {PAR_WORLD} ({label}): band GN (gn_stats, "
+          f"all-reduce, apply kernel) vs gn_swish_reference of the whole "
+          f"image at {len(spatial_gn)} GN shapes, max err {gn_err:.3g}; vs "
+          f"one process uint8 mean/max {u8[0]:.3f}/{u8[1]}, verts "
+          f"{ev:.3g}, identity {ei:.3g}; " + "; ".join(lines))
+    # the control: GroupNorm's moments over each band alone
+    c_u8 = max(_u8_err(res["spatial_serve"]["per_band"][0]["sr_u8"],
+                       refs["spatial"]["sr_u8"])[0] for res in ranks)
+    require(c_u8 > PAR_SERVE_TOL["bf16"]["u8_mean"],
+            f"(b) control: with GroupNorm per band the request is "
+            f"{c_u8:.3f} uint8 levels from one process, within the "
+            f"tolerance {PAR_SERVE_TOL['bf16']['u8_mean']}")
+    print(f"    (b) control, GroupNorm's moments per band: uint8 mean "
+          f"{c_u8:.3f} from one process (must exceed "
+          f"{PAR_SERVE_TOL['bf16']['u8_mean']})")
+
+    # (c), (d) the Trainer
+    one = tmp / "out" / "par_one"
+    ref_losses = _losses(one)
+    require(len(ref_losses) == 3, f"one-process losses {ref_losses}")
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    tcfg = update_cfg(get_cfg_defaults(), overlays["one"])
+    lr = max(float(tcfg.sr.train.optimizer.lr), float(tcfg.mica.train.lr),
+             float(tcfg.mica.train.arcface_lr))
+
+    def loss_gap(got: list) -> float:
+        return max(abs(a - b) / abs(b) for a, b in zip(got, ref_losses))
+
+    def ckpt(tag: str, steps: int) -> list:
+        run = tmp / "out" / f"par_{tag}"
+        ckpts = sorted(p.name for p in (run / "checkpoint").glob("*.npz"))
+        require(ckpts == [f"ckpt_{steps:010d}.npz"], f"{tag} ckpts {ckpts}")
+        return npz_leaves(run / "checkpoint" / ckpts[0])
+
+    for tag, steps in (("dp", 3), ("tp", 2)):
+        c_ = "c" if tag == "dp" else "d"
+        got = _losses(tmp / "out" / f"par_{tag}")
+        require(len(got) == steps and loss_gap(got) <= PAR_TRAIN_RTOL,
+                f"({c_}) {tag} losses {got} vs one process "
+                f"{ref_losses[:steps]} (rtol {PAR_TRAIN_RTOL})")
+        mine = ckpt(tag, steps)
+        theirs = npz_leaves(one / "checkpoint" / f"ckpt_{steps:010d}.npz")
+        require([a.shape for a in mine] == [b.shape for b in theirs],
+                f"{tag}: the checkpoint's leaves are not the one-process "
+                f"layout")
+        gap = _ckpt_gap(mine, theirs, steps, lr)
+        require(_ckpt_ok(gap),
+                f"({c_}) {tag} checkpoint vs one process: {_ckpt_text(gap)}"
+                f" (limits: share {PAR_CKPT_OFF} at rel {PAR_CKPT_REL}, "
+                f"gap ratio {PAR_CKPT_WORST})")
+        lines = []
+        for r, res in enumerate(ranks):
+            _, dt, c, peak = res[f"trainer_{tag}"]
+            require(c["gn_swish"] > 0 and c["spatial_attention"] > 0,
+                    f"{tag} trainer launches {c}")
+            add(c)
+            lines.append(f"rank {r}: {dt:.1f} s, peak {peak:.2f} GiB, "
+                         f"launches {c}")
+        print(f"    ({c_}) Trainer via the CLI at mesh "
+              + ("[2, 1]" if tag == "dp"
+                 else "[1, 2] (TP, tp_min_channels 128)")
+              + f", {steps} steps ({label}): losses "
+              f"{[f'{v:.5f}' for v in got]} vs one process "
+              f"{[f'{v:.5f}' for v in ref_losses[:steps]]} (largest gap "
+              f"{loss_gap(got):.3g} of the loss, rtol {PAR_TRAIN_RTOL}); "
+              f"checkpoint written by rank 0 alone in the one-process "
+              f"layout ({len(mine)} leaves) vs one process's: "
+              f"{_ckpt_text(gap)}; " + "; ".join(lines))
+        if tag == "dp":
+            continue
+        # the control of (d): the split weights gathered in the wrong order
+        gap = _ckpt_gap(_swapped(mine, int(tcfg.tpu.tp_min_channels)),
+                        theirs, steps, lr)
+        require(not _ckpt_ok(gap), f"(d) control: a checkpoint with its "
+                f"split weights gathered in reverse order passes: "
+                f"{_ckpt_text(gap)}")
+        print(f"    (d) control, the split weights gathered in reverse rank "
+              f"order: {_ckpt_text(gap)} (must fail)")
+    # the control of (c): no gradient averaging, 2 steps
+    got = _losses(tmp / "out" / "par_dp_control")
+    gap = _ckpt_gap(ckpt("dp_control", 2), npz_leaves(
+        one / "checkpoint" / "ckpt_0000000002.npz"), 2, lr)
+    require(not _ckpt_ok(gap), f"(c) control: the checkpoint of a run "
+            f"without gradient averaging passes: {_ckpt_text(gap)}")
+    print(f"    (c) control, each rank stepping on its own rows' gradient: "
+          f"losses {[f'{v:.5f}' for v in got]} (largest gap "
+          f"{loss_gap(got):.3g} of the loss); checkpoint {_ckpt_text(gap)} "
+          f"(must fail)")
+    # one process loads the DP run's checkpoint
+    mods = build_joint(tcfg, device=dev, flame=flame)
+    meta = load_train_state(tmp / "out" / "par_dp" / "checkpoint"
+                            / "ckpt_0000000003.npz", mods,
+                            init_train_state(mods, tcfg))
+    require(int(meta["global_step"]) == 3, f"loaded meta {meta}")
+    del mods
+    print(f"    one process loaded the mesh run's checkpoint (global step "
+          f"3); one-process Trainer {t_one:.1f} s; the ranks' jobs "
+          f"{t_ranks:.1f} s; {smi_line() if dev.type == 'cuda' else ''}")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2747,14 +3593,16 @@ def main() -> int:
     print("    conv3x3 and fused_gn_swish_conv3x3 are on no model path (as "
           "in the JAX package): 0 launches on the main paths")
     rec.update(phase_int8_conv(dev))
+    config_shapes = phase_config_shapes(dev)
     phase_gradients(dev)
     phase_tiny_slice(dev)
     phase_tiny_train(dev)
 
     # 4. serving, DDIM-25
     cfg = serving_cfg("ddim")
-    flame = synthetic_flame(n_vertices=5023, n_shape=300, n_exp=100,
-                            n_faces=9976, seed=0, device=dev)
+    flame_kw = dict(n_vertices=5023, n_shape=300, n_exp=100, n_faces=9976,
+                    seed=0)
+    flame = synthetic_flame(**flame_kw, device=dev)
     t0 = time.perf_counter()
     p = Predictor.from_config(cfg, init_seed=0, batch_size=8, flame=flame)
     n_unet, n_arc = (sum(x.numel() for x in m.parameters()) / 1e6
@@ -2848,6 +3696,12 @@ def main() -> int:
                     / "checkpoint" / "ckpt_0000000006.npz", now_ckpt)
         staged = phase_staged(dev, Path(tmp), overlay)
         tools_counts = phase_tools(dev, Path(tmp), now_ckpt)
+        # 13. the parallel layer, on phase 10's data
+        (Path(tmp) / "par").mkdir()
+        par_counts = phase_parallel(dev, flame_kw, Path(tmp) / "par",
+                                    overlay)
+    require(par_counts["gn_stats"] > 0,
+            "phase 13's spatial path launched no gn_stats")
 
     kernels = []
     meta = {
@@ -2867,11 +3721,13 @@ def main() -> int:
     for name, (src, replaces) in meta.items():
         r = rec[name]
         # launches: the serving requests' (phase 4, bf16); int8_conv's main
-        # path is the CLI's int8 default (phase 9)
+        # path is the CLI's int8 default (phase 9), gn_stats's the spatial
+        # request of phase 13 (b) (summed over phase 13's paths)
+        main_counts = {"int8_conv": cli_counts,
+                       "gn_stats": par_counts}.get(name, ddim_counts)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": (cli_counts if name == "int8_conv"
-                                     else ddim_counts)[name],
+                        "launches": main_counts[name],
                         "cli_launches": cli_counts[name],
                         "train_launches": train_counts[name],
                         "model3_launches": model3_counts[name],
@@ -2879,11 +3735,14 @@ def main() -> int:
                         "sr_only_launches": staged["sr_only"][name],
                         "legacy_launches": staged["legacy"][name],
                         "tools_launches": tools_counts[name],
+                        "parallel_launches": par_counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "shapes": r["shapes"]})
+        if name in config_shapes:
+            kernels[-1]["repo_config_shapes"] = len(config_shapes[name])
         for extra in ("main_path", "cudnn_bf16_ms", "cold_ms",
                       "cold_bound_ms", "convs_per_forward", "forward_ms",
                       "forward_launches"):

@@ -15,7 +15,9 @@ GN→Swish→conv3x3 kernels, public functions that no model path calls, and
 the w8a8 int8 conv that the int8 serving UNet (``ops/quant.py``) runs.
 The JAX package's checkpoints are read without JAX
 (``train/checkpoint.py``); ``python -m sr3d_torch.serve`` is the
-batch-serving CLI.
+batch-serving CLI.  ``parallel/`` runs serving and training over a mesh of
+``torch.distributed`` ranks: data parallel, spatial (image rows over
+ranks) and tensor parallel.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Importing the package needs neither a GPU nor a CUDA compiler.

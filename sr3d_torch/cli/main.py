@@ -18,6 +18,11 @@ caps the steps of this call; ``--debug`` (or ``debug`` in the experiment
 name) shrinks the run as the reference's debug mode does; ``--profile DIR``
 writes a ``torch.profiler`` trace.  From Python: ``main(argv,
 device="cpu")``.
+
+Data and tensor parallel training (``tpu.mesh_shape``, e.g. ``[2, 1]`` or
+``[1, 2]``)::
+
+    torchrun --nproc_per_node=2 -m sr3d_torch.cli.main -p train -c <cfg.yml>
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 from ..config import get_cfg_defaults, update_cfg
 from ..data.pipeline import prefetch_to_device
 from ..device import resolve_device
+from ..parallel.mesh import init_distributed, is_main_rank
 
 
 def parse_args(argv=None):
@@ -250,9 +256,16 @@ def run_legacy(cfg, max_steps: int | None = None, *,
 
 def main(argv=None, *, device: str | torch.device | None = None) -> int:
     """Run the CLI on ``device`` (None: the GPU; it raises where there is
-    none)."""
+    none).  Under ``torchrun`` it starts the process group (NCCL, one card a
+    rank; a group the caller started is used as it is), and the joint
+    Trainer trains over ``tpu.mesh_shape``; the branch trainers run on one
+    device, as the JAX package's do."""
     cfg, args = parse_args(argv)
+    _, n_ranks = init_distributed()
     device = resolve_device(device)
+    if n_ranks > 1 and (args.sr_only or args.legacy):
+        raise ValueError("--sr-only and --legacy train on one device; run "
+                         "them as one process")
 
     logging.basicConfig(
         level=logging.INFO,
@@ -265,9 +278,10 @@ def main(argv=None, *, device: str | torch.device | None = None) -> int:
     log_dir.mkdir(parents=True, exist_ok=True)
     # the raw experiment YAML → logs/config.yml, the merged tree →
     # logs/full_config.yaml
-    if cfg.get("cfg_file") and Path(str(cfg.cfg_file)).exists():
-        shutil.copy(str(cfg.cfg_file), str(log_dir / "config.yml"))
-    cfg.dump(str(log_dir / "full_config.yaml"))
+    if is_main_rank():
+        if cfg.get("cfg_file") and Path(str(cfg.cfg_file)).exists():
+            shutil.copy(str(cfg.cfg_file), str(log_dir / "config.yml"))
+        cfg.dump(str(log_dir / "full_config.yaml"))
 
     profile_ctx = contextlib.nullcontext()
     if args.profile:

@@ -24,6 +24,12 @@ test replays the JAX package's noise through the second form.
 returns the predicted noise; ``time`` is the continuous noise level γ
 ``[B, 1]`` (``time_input="gamma"``, the SR3 UNet) or the integer timestep
 ``[B]`` (``time_input="t"``, the DDPM UNet).
+
+Under the parallel layer's layout (``parallel/layout.py``) a rank holds its
+rows of the batch or its band of the image's rows: every draw is then the
+global one from the shared generator, this rank's part kept, and replayed
+draws (``noise``, ``gamma``, ``t``, ``u``) are global too, so a sharded run
+draws what the one-device run draws.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.image import clip
+from ..parallel import layout
 from .schedules import DiffusionSchedule
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -77,10 +84,12 @@ def sample_continuous_gamma(sched: DiffusionSchedule, batch: int, *,
     from ``generator``.  Returns ``(t [batch], gamma [batch])``, fp32 γ."""
     T = sched.num_timesteps
     if t is None:
-        t = torch.randint(1, T + 1, (batch,) if per_sample_t else (),
+        t = torch.randint(1, T + 1, tuple(layout.global_shape([batch]))
+                          if per_sample_t else (),
                           generator=generator, device=device)
-    if u is None:
-        u = torch.rand(batch, generator=generator, device=device)
+    t = layout.local(t) if t.dim() else t
+    u = (layout.rand([batch], generator=generator, device=device)
+         if u is None else layout.local(u))
     t = t.to(device=device, dtype=torch.long).expand(batch)
     table = torch.from_numpy(sched.sqrt_alphas_cumprod_prev).to(device)
     lo, hi = table[t - 1], table[t]
@@ -104,10 +113,10 @@ def p_losses_continuous(denoise: DenoiseFn, sched: DiffusionSchedule,
         _, gamma = sample_continuous_gamma(
             sched, b, generator=generator, device=hr.device,
             per_sample_t=per_sample_t)
-    if noise is None:
-        noise = torch.randn(hr.shape, generator=generator, device=hr.device)
+    else:
+        gamma = layout.local(gamma)
+    noise = _draw_like(hr, generator, noise)
     gamma = gamma.to(hr.device, torch.float32)
-    noise = noise.to(hr.device, torch.float32)
     x_noisy = q_sample_gamma(hr.float(), gamma, noise)
     net_in = x_noisy if cond is None else torch.cat([cond.float(), x_noisy],
                                                     dim=1)
@@ -130,13 +139,11 @@ def p_losses_discrete(denoise: DenoiseFn, sched: DiffusionSchedule,
     ``t``.  ``t`` (``[B]``) and ``noise`` (``hr``'s shape) replace the
     draws from ``generator``."""
     b = hr.shape[0]
-    if t is None:
-        t = torch.randint(0, sched.num_timesteps, (b,), generator=generator,
-                          device=hr.device)
-    if noise is None:
-        noise = torch.randn(hr.shape, generator=generator, device=hr.device)
-    t = t.to(hr.device, torch.long)
-    noise = noise.to(hr.device, torch.float32)
+    t = (torch.randint(0, sched.num_timesteps,
+                       tuple(layout.global_shape([b])), generator=generator,
+                       device=hr.device) if t is None else t)
+    t = layout.local(t).to(hr.device, torch.long)
+    noise = _draw_like(hr, generator, noise)
     x_noisy = q_sample_discrete(hr.float(), t, sched, noise)
     net_in = x_noisy if cond is None else torch.cat([cond.float(), x_noisy],
                                                     dim=1)
@@ -146,6 +153,16 @@ def p_losses_discrete(denoise: DenoiseFn, sched: DiffusionSchedule,
     if loss_type == "l2":
         return ((noise - eps) ** 2).sum()
     raise ValueError(f"unknown loss_type {loss_type!r} (l1 | l2)")
+
+
+def _draw_like(x: torch.Tensor, generator: torch.Generator | None,
+               noise: torch.Tensor | None) -> torch.Tensor:
+    """N(0, 1) of ``x``'s (local) shape, fp32 on its device: drawn, or this
+    rank's part of a replayed global draw."""
+    if noise is None:
+        return layout.randn(x.shape, generator=generator, device=x.device,
+                            row_dim=2)
+    return layout.local(noise, row_dim=2).to(x.device, torch.float32)
 
 
 def predict_start_from_noise(sched: DiffusionSchedule, x_t: torch.Tensor,
@@ -197,12 +214,13 @@ def _noise_stream(shape: torch.Size, device: torch.device,
                   ) -> Callable[[], torch.Tensor]:
     if noise is not None:
         it: Iterator[torch.Tensor] = iter(noise)
-        return lambda: next(it).to(device=device, dtype=torch.float32)
+        return lambda: layout.local(next(it), row_dim=2).to(
+            device=device, dtype=torch.float32)
     if generator is None:
         raise ValueError("pass a torch.Generator or an explicit noise "
                          "sequence")
-    return lambda: torch.randn(shape, generator=generator, device=device,
-                               dtype=torch.float32)
+    return lambda: layout.randn(shape, generator=generator, device=device,
+                                row_dim=2)
 
 
 def _sampler_init(sched: DiffusionSchedule, noise: torch.Tensor, init: str,

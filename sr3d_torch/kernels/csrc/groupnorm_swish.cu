@@ -254,7 +254,8 @@ __global__ void gn_swish_apply_kernel(const T* __restrict__ x,
                                       const float* __restrict__ gamma,
                                       const float* __restrict__ beta,
                                       T* __restrict__ y, int C, int G,
-                                      int64_t hw, float eps, int vec) {
+                                      int64_t hw, int64_t count, float eps,
+                                      int vec) {
   constexpr int N = 16 / sizeof(T);
   constexpr int64_t kChunk = (int64_t)kThreads * N * kApplyIters;
   const int64_t plane = blockIdx.x;
@@ -269,7 +270,7 @@ __global__ void gn_swish_apply_kernel(const T* __restrict__ x,
       gs += sum[g0 + i];
       gq += sumsq[g0 + i];
     }
-    const float n = (float)(hw * cg);
+    const float n = (float)(count * cg);
     const float mean = gs / n;
     const float var = fmaxf(gq / n - mean * mean, 0.f);
     s_mean = mean;
@@ -549,11 +550,14 @@ int sr3d_gn_stats_nhwc(const void* x, void* psum, void* psumsq, int batch,
 }
 
 // y = swish(groupnorm(x) * gamma + beta) from the per-channel moments.
-// x, y: [B, C, hw]; sum, sumsq: [B, C] fp32; gamma, beta: [C] fp32.
+// x, y: [B, C, hw]; sum, sumsq: [B, C] fp32 over `count` values per
+// channel (hw, or the whole image's H*W where x is a band of its rows and
+// the moments were summed over the bands); gamma, beta: [C] fp32.
 int sr3d_gn_swish_apply(const void* x, const void* sum, const void* sumsq,
                         const void* gamma, const void* beta, void* y,
-                        int64_t batch, int C, int G, int64_t hw, float eps,
-                        int is_bf16, void* stream) {
+                        int64_t batch, int C, int G, int64_t hw,
+                        int64_t count, float eps, int is_bf16,
+                        void* stream) {
   const int elem = is_bf16 ? 2 : 4;
   const int vec = vector_ok(x, hw, elem) && vector_ok(y, hw, elem);
   const int64_t chunk = (int64_t)kThreads * (16 / elem) * kApplyIters;
@@ -564,13 +568,13 @@ int sr3d_gn_swish_apply(const void* x, const void* sum, const void* sumsq,
         static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(sum),
         static_cast<const float*>(sumsq), static_cast<const float*>(gamma),
         static_cast<const float*>(beta), static_cast<__nv_bfloat16*>(y), C,
-        G, hw, eps, vec);
+        G, hw, count, eps, vec);
   } else {
     gn_swish_apply_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(sum),
         static_cast<const float*>(sumsq), static_cast<const float*>(gamma),
         static_cast<const float*>(beta), static_cast<float*>(y), C, G, hw,
-        eps, vec);
+        count, eps, vec);
   }
   return (int)cudaGetLastError();
 }

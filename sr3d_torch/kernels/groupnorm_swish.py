@@ -116,19 +116,30 @@ def gn_mean_scale(s: torch.Tensor, q: torch.Tensor, gamma: torch.Tensor,
         per_channel(1.0 / torch.sqrt(g_var + eps)) * gamma.float()
 
 
+def gn_swish_apply_reference(x: torch.Tensor, s: torch.Tensor,
+                             q: torch.Tensor, gamma: torch.Tensor,
+                             beta: torch.Tensor, groups: int, eps: float,
+                             count: int) -> torch.Tensor:
+    """``swish(GroupNorm(x)·γ + β)`` of NCHW ``x`` from per-channel
+    moments ``s``, ``q`` ``[B, C]`` taken over ``count`` values per channel
+    (H·W of x, or of the whole image where x is a band of its rows)."""
+    C = x.shape[1]
+    mean_c, a = gn_mean_scale(s, q, gamma, float(count * (C // groups)),
+                              groups, eps)
+    xn = ((x.float() - mean_c[:, :, None, None]) * a[:, :, None, None]
+          + beta.float()[None, :, None, None])
+    return (xn * torch.sigmoid(xn)).to(x.dtype)
+
+
 def gn_swish_reference(x: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, groups: int, eps: float = 1e-5
                        ) -> torch.Tensor:
     """GroupNorm with one-pass fp32 statistics over contiguous channel
     groups, then γ/β and swish, in ``x.dtype`` — the kernel's arithmetic,
     ``(x − mean)·(rstd·γ) + β``."""
-    B, C, H, W = x.shape
     s, q = gn_stats_reference(x)
-    mean_c, a = gn_mean_scale(s, q, gamma, float(H * W * (C // groups)),
-                              groups, eps)
-    xn = ((x.float() - mean_c[:, :, None, None]) * a[:, :, None, None]
-          + beta.float()[None, :, None, None])
-    return (xn * torch.sigmoid(xn)).to(x.dtype)
+    return gn_swish_apply_reference(x, s, q, gamma, beta, groups, eps,
+                                    x.shape[2] * x.shape[3])
 
 
 def _check_input(x: torch.Tensor, name: str) -> int:
@@ -200,29 +211,42 @@ def _launch_gn_swish(x: torch.Tensor, gamma: torch.Tensor,
                  plan.threads, is_bf16, stream), "gn_swish")
         return y
     s, q = gn_stats(x)
+    return _launch_apply(x, s, q, gamma, beta, groups, eps, H * W)
+
+
+def _launch_apply(x, s, q, gamma, beta, groups, eps, count) -> torch.Tensor:
+    """The apply kernel on checked inputs, without counting a launch."""
+    B, C, H, W = x.shape
     y = torch.empty_like(x)
     fn = function("groupnorm_swish", "sr3d_gn_swish_apply",
                   [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-                   _P])
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_float, ctypes.c_int, _P])
     check(fn(x.data_ptr(), s.data_ptr(), q.data_ptr(), gamma.data_ptr(),
-             beta.data_ptr(), y.data_ptr(), B, C, groups, H * W, eps,
-             is_bf16, stream), "gn_swish")
+             beta.data_ptr(), y.data_ptr(), B, C, groups, H * W, count, eps,
+             _DTYPES[x.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream), "gn_swish")
     return y
 
 
-def _gn_swish_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                   groups: int, eps: float) -> torch.Tensor:
-    _check_input(x, "gn_swish")
-    B, C, H, W = x.shape
+def _check_gn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              groups: int, what: str) -> None:
+    _check_input(x, what)
+    C = x.shape[1]
     if C % groups:
-        raise ValueError(f"gn_swish: {C} channels do not split into "
+        raise ValueError(f"{what}: {C} channels do not split into "
                          f"{groups} groups")
     for name, p in (("gamma", gamma), ("beta", beta)):
         if (p.device != x.device or p.dtype != torch.float32
                 or tuple(p.shape) != (C,) or not p.is_contiguous()):
-            raise ValueError(f"gn_swish: {name} must be a contiguous fp32 "
+            raise ValueError(f"{what}: {name} must be a contiguous fp32 "
                              f"[{C}] tensor on {x.device}")
+
+
+def _gn_swish_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   groups: int, eps: float) -> torch.Tensor:
+    _check_gn(x, gamma, beta, groups, "gn_swish")
+    B, C, H, W = x.shape
     plan = gn_plan(B, C, groups, H * W, x.dtype,
                    torch.cuda.get_device_properties(
                        x.device).multi_processor_count)
@@ -267,3 +291,33 @@ def gn_swish(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 gn_swish.launches = 0
+
+
+def gn_swish_apply(x: torch.Tensor, s: torch.Tensor, q: torch.Tensor,
+                   gamma: torch.Tensor, beta: torch.Tensor, groups: int,
+                   eps: float = 1e-5, count: int | None = None
+                   ) -> torch.Tensor:
+    """``swish(GroupNorm(x)·γ + β)`` of NCHW ``x`` from given per-channel
+    moments ``s``, ``q`` (fp32 ``[B, C]``, e.g. ``gn_stats`` of each band
+    of an image's rows summed over the bands) over ``count`` values per
+    channel (default H·W of ``x``).  On CUDA: the apply kernel, one launch
+    counted in ``gn_swish.launches`` (it is half of ``gn_swish``'s
+    two-pass path); no gradient there (the spatial serving path)."""
+    count = x.shape[2] * x.shape[3] if count is None else int(count)
+    if x.device.type == "cpu":
+        return gn_swish_apply_reference(x, s, q, gamma, beta, groups, eps,
+                                        count)
+    _check_gn(x, gamma, beta, groups, "gn_swish_apply")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, s, q, gamma, beta)):
+        raise NotImplementedError("gn_swish_apply has no backward on CUDA "
+                                  "(spatial sharding serves only)")
+    B, C = x.shape[:2]
+    for name, t in (("s", s), ("q", q)):
+        if (t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != (B, C) or not t.is_contiguous()):
+            raise ValueError(f"gn_swish_apply: {name} must be a contiguous "
+                             f"fp32 [{B}, {C}] tensor on {x.device}")
+    y = _launch_apply(x, s, q, gamma, beta, groups, eps, count)
+    gn_swish.launches += 1
+    return y

@@ -11,7 +11,10 @@ BatchNorm follows flax's ``nn.BatchNorm`` (momentum 0.9), not
 ``nn.BatchNorm2d``: eval mode normalises with the running statistics;
 train mode with the batch's mean and biased variance (one-pass, clamped at
 0) and updates ``running = 0.9·running + 0.1·batch`` with that biased
-variance too (``nn.BatchNorm2d`` would store the unbiased one).
+variance too (``nn.BatchNorm2d`` would store the unbiased one).  Under
+the parallel layer's data layout each rank holds its rows of the batch,
+and the train-mode moments are summed over the data axis: the global
+batch's, as flax's are under GSPMD.
 
 The frozen prefix (``FROZEN_PREFIX_SCOPES``: stem and stages 1–3) stays in
 eval mode under ``.train()`` unless ``train_frozen_prefix`` is set, as the
@@ -30,6 +33,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..parallel import layout
+from ..parallel.collectives import all_reduce_sum
 from .layers import Conv2d, Linear
 
 
@@ -67,8 +72,18 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = [d for d in range(x.dim()) if d != 1]
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            batch = layout.current().batch
+            if batch is None or batch.size == 1:
+                mean = xf.mean(dims)
+                mean_sq = (xf * xf).mean(dims)
+            else:
+                # this rank holds its rows of the batch: the statistics
+                # of the global batch, as flax's under GSPMD
+                n = xf.numel() // xf.shape[1] * batch.size
+                s, q = all_reduce_sum(torch.stack(
+                    (xf.sum(dims), (xf * xf).sum(dims))), batch)
+                mean, mean_sq = s / n, q / n
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)

@@ -48,6 +48,14 @@ drawn outside the checkpointed call: the recompute draws the same mask.
 ``deterministic`` defaults to True, as flax's ``SR3UNet.__call__`` does.
 
 ``eval()`` is the serving forward: no dropout, no checkpoint.
+
+Under the parallel layer's spatial layout (``parallel.pjit_sample_spatial``,
+``Predictor(spatial=True)``) each rank runs the UNet on a band of the image's
+rows: the 3×3 convs exchange halo rows (``models/layers.py``), GroupNorm sums
+its moments over the bands (``gn_stats``, an all-reduce, then the apply
+kernel with the whole image's count), attention gathers q, k and v, and the
+int8 gates read the whole image's height.  Tensor parallelism lives in the
+convs and dense layers (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -62,8 +70,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import spatial_attention
-from ..kernels.groupnorm_swish import gn_swish
+from ..kernels.groupnorm_swish import (gn_mean_scale, gn_stats, gn_swish,
+                                       gn_swish_apply)
 from ..ops.quant import Int8Conv, Versioned, gn_static_scale
+from ..parallel import layout
+from ..parallel.collectives import all_gather, all_reduce_sum
 from .layers import Conv2d, Linear
 
 
@@ -114,8 +125,17 @@ class GroupNormSwish(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return gn_swish(x.contiguous(), self.scale, self.bias, self.groups,
-                        self.eps)
+        rows = layout.current().rows
+        if rows is None or rows.size == 1:
+            return gn_swish(x.contiguous(), self.scale, self.bias,
+                            self.groups, self.eps)
+        # a band of the image's rows: the kernel's moments of the band,
+        # summed over the bands, then the apply kernel over the whole
+        # image's count
+        x = x.contiguous()
+        s, q = all_reduce_sum(torch.stack(gn_stats(x)), rows)
+        return gn_swish_apply(x, s, q, self.scale, self.bias, self.groups,
+                              self.eps, x.shape[2] * rows.size * x.shape[3])
 
 
 class GroupNorm(nn.Module):
@@ -129,8 +149,20 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.groups, self.scale, self.bias,
-                            self.eps)
+        rows = layout.current().rows
+        if rows is None or rows.size == 1:
+            return F.group_norm(x.float(), self.groups, self.scale,
+                                self.bias, self.eps)
+        # a band of rows: one-pass moments summed over the bands
+        xf = x.float()
+        s, q = all_reduce_sum(torch.stack(
+            (xf.sum((2, 3)), (xf * xf).sum((2, 3)))), rows)
+        mean_c, a = gn_mean_scale(
+            s, q, self.scale, float(x.shape[2] * rows.size * x.shape[3]
+                                    * (x.shape[1] // self.groups)),
+            self.groups, self.eps)
+        return ((xf - mean_c[:, :, None, None]) * a[:, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 def apply_dropout(x: torch.Tensor, rate: float,
@@ -138,8 +170,8 @@ def apply_dropout(x: torch.Tensor, rate: float,
     """flax ``nn.Dropout``: keep with probability 1 − rate, kept values
     scaled by 1/(1 − rate), in ``x.dtype``; the mask is drawn from
     ``generator`` (on ``x``'s device)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        >= rate
+    keep = layout.rand(x.shape, generator=generator, device=x.device,
+                       row_dim=2) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -202,12 +234,20 @@ class SelfAttention(nn.Module):
         self.out = Conv2d(channels, channels, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, C, H, W = x.shape
-        qkv = self.qkv(self.norm(x).to(self.dtype))            # [B, 3C, H, W]
+        """Over a band of the image's rows (spatial sharding), q, k and v
+        of every row are gathered, attention runs over all tokens and the
+        band's rows of the result are kept."""
+        B, C, h, W = x.shape
+        rows = layout.current().rows
+        qkv = self.qkv(self.norm(x).to(self.dtype))            # [B, 3C, h, W]
+        qkv = all_gather(qkv, 2, rows)                         # [B, 3C, H, W]
+        H = qkv.shape[2]
         qkv = qkv.flatten(2).transpose(1, 2)                   # [B, HW, 3C]
         q, k, v = (t.contiguous() for t in qkv.split(C, dim=-1))
         out = spatial_attention(q, k, v, channels=C)           # [B, HW, C]
         out = out.transpose(1, 2).reshape(B, C, H, W).to(self.dtype)
+        if H != h:
+            out = out.narrow(2, rows.index * h, h)
         return self.out(out) + x
 
 
@@ -377,9 +417,11 @@ class SR3UNet(nn.Module):
         t = getattr(self, self.time_name)(time)
         h = self.conv_in(x.to(self.dtype))
         feats = [h]
+        rows = layout.current().rows
+        split = 1 if rows is None else rows.size   # h holds a band of rows
         for kind, name in self.plan:
             mod = getattr(self, name)
-            q = quant and self._quant_gate(kind, h.shape[2])
+            q = quant and self._quant_gate(kind, h.shape[2] * split)
             if kind in ("down", "mid", "up"):
                 if kind == "up":
                     h = torch.cat([h, feats.pop()], dim=1)

@@ -18,6 +18,11 @@ the same way.
 
 Inference only: rounding has no gradient, so a train step never asks for it
 (model3's differentiable hand-off included).
+
+The activation scale of the JAX package's dynamic quantize is over the whole
+tensor, the global batch included.  Where the parallel layer splits the
+tensor over ranks (the data-parallel and spatial Predictor), ``Int8Conv``
+maximises each rank's scale over the ranks before the kernel runs.
 """
 
 from __future__ import annotations
@@ -26,8 +31,10 @@ from typing import Callable
 
 import torch
 
-from ..kernels.int8_conv import int8_conv, int8_conv_quantized, prepare_weight
+from ..kernels.int8_conv import (dynamic_scale, int8_conv,
+                                 int8_conv_quantized, prepare_weight)
 from ..models.layers import Conv2d
+from ..parallel import layout
 
 __all__ = ["Int8Conv", "Versioned", "gn_static_scale", "int8_conv"]
 
@@ -95,10 +102,19 @@ class Int8Conv(Conv2d):
 
     def forward(self, x: torch.Tensor, quant: bool = False,
                 a_scale: torch.Tensor | None = None) -> torch.Tensor:
+        """Under a layout that splits ``x`` over ranks (``parallel``), the
+        dynamic scale is the whole tensor's: this rank's, maximised over
+        the ranks that hold the rest."""
         if not quant:
             return super().forward(x)
         wk, w_scale = self._quantized(self.weight)
-        return int8_conv_quantized(
-            x.contiguous(), wk, w_scale, self.bias, stride=self.stride[0],
-            padding=self.padding[0], out_dtype=self.compute_dtype,
-            a_scale=a_scale)
+        if a_scale is None and layout.current().axes():
+            a_scale = layout.amax(dynamic_scale(x))
+
+        def conv(t, bias):
+            return int8_conv_quantized(
+                t.contiguous(), wk, w_scale, bias, stride=self.stride[0],
+                padding=self.padding[0], out_dtype=self.compute_dtype,
+                a_scale=a_scale)
+
+        return self.run(x, conv)

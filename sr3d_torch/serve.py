@@ -19,6 +19,7 @@ for it (the CLI's default).
 
 from __future__ import annotations
 
+import functools
 import time
 from pathlib import Path
 from typing import Any, Mapping
@@ -29,6 +30,8 @@ import torch
 from .diffusion.ema import EmaState
 from .eval.export import export_prediction, save_img
 from .ops.image import resize, tensor_to_uint8
+from .parallel.mesh import DATA_AXIS, MODEL_AXIS
+from .parallel.steps import pjit_sample, pjit_sample_spatial
 from .train.checkpoint import (
     latest_npz_step,
     load_leaves_into,
@@ -47,10 +50,21 @@ from .utils.bridge import (
 class Predictor:
     """Inference endpoint over a ``JointModules``.  With ``use_ema`` the UNet
     samples with ``ema``'s parameters (without one, with its own, as the
-    JAX package does)."""
+    JAX package does).
+
+    With ``mesh`` (``parallel.make_mesh``; every rank of it builds the same
+    Predictor and calls ``predict`` with the same request) a request is
+    served over the mesh: each chunk's batch is split over the ``data``
+    axis (throughput), or with ``spatial=True`` the image height over the
+    ``model`` axis (latency: one face's sampling spread over ranks; the
+    UNet exchanges halo rows, sums GroupNorm's moments over the bands and
+    gathers attention's q, k and v).  The draws are the one-device run's,
+    and every rank returns the whole result, as the JAX Predictor's
+    replicated outputs."""
 
     def __init__(self, cfg, modules: JointModules, batch_size: int = 8,
-                 use_ema: bool = False, ema: EmaState | None = None):
+                 use_ema: bool = False, ema: EmaState | None = None,
+                 mesh=None, spatial: bool = False):
         self.cfg = cfg
         self.modules = modules
         self.batch_size = int(batch_size)
@@ -60,7 +74,31 @@ class Predictor:
         self.lr = int(cfg.sr.datasets.val.l_resolution)
         # without use_ema the EMA is dead weight
         self.ema = ema if use_ema else None
-        self._step = make_val_step(use_ema=use_ema)
+        sample_over = None
+        if mesh is not None and spatial:
+            n = mesh.shape[MODEL_AXIS]
+            if self.hr % n:
+                raise ValueError(f"image height {self.hr} not divisible by "
+                                 f"the model axis ({n})")
+            # each Downsample halves an even band (JAX's GSPMD pads an
+            # uneven one; the port asks for even bands at every level)
+            downs = sum(k == "downsample" for k, _ in modules.unet.plan)
+            for lvl in range(downs):
+                if n > 1 and (self.hr >> lvl) % (2 * n):
+                    raise ValueError(
+                        f"UNet level {lvl} ({self.hr >> lvl} rows) does "
+                        f"not split into even bands over the model axis "
+                        f"({n})")
+            sample_over = functools.partial(pjit_sample_spatial, mesh=mesh)
+        elif mesh is not None:
+            n = mesh.shape[DATA_AXIS]
+            if self.batch_size % n:
+                raise ValueError(f"batch_size {self.batch_size} not "
+                                 f"divisible by the data axis ({n})")
+            sample_over = functools.partial(pjit_sample, mesh=mesh)
+        # under a mesh each rank samples its rows or band of rows; the
+        # sample and the MICA branch's outputs are whole on every rank
+        self._step = make_val_step(use_ema=use_ema, sample_over=sample_over)
 
     @classmethod
     def from_config(cls, cfg, checkpoint: str | None = None, *,
@@ -68,7 +106,8 @@ class Predictor:
                     params: Mapping[str, Any] | None = None,
                     init_seed: int | None = None, batch_size: int = 8,
                     flame=None, dtype: torch.dtype | None = None,
-                    device: str | torch.device | None = None) -> "Predictor":
+                    device: str | torch.device | None = None,
+                    mesh=None, spatial: bool = False) -> "Predictor":
         """Build the modules from the config and load their weights, as the
         JAX ``Predictor.from_config`` does:
 
@@ -83,7 +122,9 @@ class Predictor:
         ``params`` (the JAX joint tree as numpy: ``{"sr", "arcface",
         "arcface_stats", "mapping"}``) or ``init_seed`` (random weights,
         explicitly) replace the checkpoint.  Random weights are never
-        served by accident."""
+        served by accident.  ``mesh`` and ``spatial`` as for the
+        constructor."""
+        par = dict(mesh=mesh, spatial=spatial)
         if params is not None or init_seed is not None:
             if checkpoint is not None:
                 raise ValueError("pass one of checkpoint=, params= and "
@@ -92,7 +133,7 @@ class Predictor:
                                   device=device, init_seed=init_seed or 0)
             if params is not None:
                 load_jax_params(modules, params)
-            return cls(cfg, modules, batch_size, use_ema)
+            return cls(cfg, modules, batch_size, use_ema, **par)
         if checkpoint is None:
             ckpt_dir = (Path(cfg.output_dir) / (cfg.get("name") or "default")
                         / cfg.path.checkpoint)
@@ -114,13 +155,13 @@ class Predictor:
             # a converted reference UNet: the SR branch only
             sr = load_leaves_into(checkpoint, export_jax_params(modules)["sr"])
             modules.unet.load_state_dict(flax_to_state_dict(sr))
-            return cls(cfg, modules, batch_size, use_ema)
+            return cls(cfg, modules, batch_size, use_ema, **par)
         load_jax_params(modules, dict(state["params"],
                                       arcface_stats=state["arcface_stats"]))
         ema = state["ema"]
         if ema is not None:
             ema = load_jax_ema(ema["params"], ema["step"], modules.device)
-        return cls(cfg, modules, batch_size, use_ema, ema)
+        return cls(cfg, modules, batch_size, use_ema, ema, **par)
 
     def warmup(self) -> float:
         """Serve one dummy face end to end; returns wall seconds."""

@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import warnings
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +58,7 @@ from ..models.mapping import MappingNetwork
 from ..models.networks import define_g
 from ..models.sr3_unet import SR3UNet
 from ..ops.image import sr_to_mica_inputs
+from ..parallel.layout import average_gradients
 
 
 @dataclasses.dataclass(frozen=True)
@@ -500,6 +501,9 @@ def accumulate_and_step(state: JointTrainState, loss_fn,
     finally:
         for net in nets:
             net.eval()
+    # under the data layout (parallel.pjit_train_step): the global batch's
+    # gradient on every rank, before it joins the running mean
+    average_gradients(params)
     if acc is not None:   # acc + (g − acc)/(n + 1), optax's mean
         grads = [p.grad for p in params]
         torch._foreach_sub_(grads, acc)
@@ -590,7 +594,8 @@ def make_eval_step():
     return eval_step
 
 
-def make_val_step(use_ema: bool = False, int8: bool | None = None):
+def make_val_step(use_ema: bool = False, int8: bool | None = None,
+                  sample_over: Callable | None = None):
     """``val_step(modules, batch, *, generator=None, noise=None, ema=None)
     -> dict``: sampling with ``modules.val_sampler`` (``ddim`` = strided
     DDIM, ``dpm++`` = DPM-Solver++(2M) at ``ddim_steps``, the 2M SDE where
@@ -603,7 +608,13 @@ def make_val_step(use_ema: bool = False, int8: bool | None = None):
     (see ``diffusion.gaussian``).  Returns NHWC ``sr`` [−1, 1] and
     ``img224`` [0, 1], ``identity`` (shape code), ``verts`` and ``lmk68``;
     when the batch has ``flame_shape``, also ``l_mica``, the masked vertex
-    L1 against its ground-truth vertices."""
+    L1 against its ground-truth vertices.
+
+    ``sample_over``: the sampling ``fn(cond, **kw)`` laid out over a mesh
+    (``parallel.pjit_sample`` or ``pjit_sample_spatial`` of it, as
+    ``Predictor(mesh=)`` passes): each rank samples its rows or band of
+    rows, the sample comes back whole on every rank and the MICA branch
+    runs on it there, as the JAX step's replicated outputs."""
 
     @torch.no_grad()
     def val_step(modules: JointModules, batch: dict, *,
@@ -619,18 +630,23 @@ def make_val_step(use_ema: bool = False, int8: bool | None = None):
             def denoise(x, t):
                 return functional_call(modules.unet, ema.params, (x, t),
                                        {"quant": quant})
-        kw = dict(generator=generator, noise=noise, init=modules.sampler_init,
-                  time_input=modules.time_input)
-        if modules.val_sampler == "ddim":
-            final = ddim_sample_loop(denoise, modules.sched_val, cond,
-                                     num_steps=modules.ddim_steps,
-                                     eta=modules.ddim_eta, **kw)
-        elif modules.val_sampler == "dpm++":
-            final = dpmpp_sample_loop(denoise, modules.sched_val, cond,
-                                      num_steps=modules.ddim_steps,
-                                      eta=modules.dpmpp_eta, **kw)
-        else:
-            final = p_sample_loop(denoise, modules.sched_val, cond, **kw)
+
+        def sample(cond, **kw):
+            if modules.val_sampler == "ddim":
+                return ddim_sample_loop(denoise, modules.sched_val, cond,
+                                        num_steps=modules.ddim_steps,
+                                        eta=modules.ddim_eta, **kw)
+            if modules.val_sampler == "dpm++":
+                return dpmpp_sample_loop(denoise, modules.sched_val, cond,
+                                         num_steps=modules.ddim_steps,
+                                         eta=modules.dpmpp_eta, **kw)
+            return p_sample_loop(denoise, modules.sched_val, cond, **kw)
+
+        if sample_over is not None:
+            sample = sample_over(sample)
+        final = sample(cond, generator=generator, noise=noise,
+                       init=modules.sampler_init,
+                       time_input=modules.time_input)
         sr = final.permute(0, 2, 3, 1)
         img224, blob = sr_to_mica_inputs(sr, image_size=modules.image_size,
                                          blob_size=modules.blob_size)

@@ -20,7 +20,14 @@ Unlike the JAX Trainer:
   1, global_step)`` (torch cannot reproduce JAX's key chain), and a resumed
   run continues the data where it stopped, so a run interrupted and resumed
   ends in the state of an unbroken one;
-* one device: a ``tpu.mesh_shape`` that asks for more raises.
+* the mesh (``tpu.mesh_shape``, the world's processes: ``torchrun``, or a
+  caller that started the process group) is SPMD over
+  ``torch.distributed``: every rank runs this loop on the same data and
+  draws, keeps its rows of each batch (``data``), and holds its output
+  channels of the widest weights where the ``model`` axis is wider than 1
+  (``parallel.shard_state_dp_tp``, ``tpu.tp_min_channels``); rank 0 alone
+  logs and writes files, and the others wait for each write.  Checkpoints
+  hold the whole weights in the JAX layout whatever the mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ from ..diffusion.ema import ema_init
 from ..eval.export import export_prediction
 from ..eval.metrics import calculate_psnr, calculate_ssim, save_img
 from ..ops.image import resize, tensor_to_uint8
+from ..parallel.layout import Layout, mean_metric, use
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, barrier, is_main_rank,
+                             local_rows, make_mesh)
+from ..parallel.steps import (data_layout, pjit_train_step,
+                              shard_state_dp_tp, unsharded)
 from ..utils.bridge import export_jax_params, flax_to_state_dict
 from ..utils.logging import MetricsWriter
 from .checkpoint import (
@@ -47,6 +59,7 @@ from .checkpoint import (
     load_arcface_npz,
     load_leaves_into,
     load_train_state,
+    npz_step_path,
     save_train_state,
     transfer_sr_adam_moments,
 )
@@ -146,14 +159,12 @@ class BestModel:
         return False
 
 
-def _one_device(mesh_shape) -> None:
-    """``tpu.mesh_shape`` (data, model; −1 = every device) on one card:
-    −1 and 1 are one device; more raises."""
-    if any(int(d) > 1 for d in mesh_shape):
-        raise NotImplementedError(
-            f"tpu.mesh_shape {list(mesh_shape)} asks for more than one "
-            f"device; the port trains on one (data and model parallelism: "
-            f"ROADMAP Queue 1 item 7)")
+class _NoWriter:
+    """The metrics sink of the ranks other than 0: every call does
+    nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
 
 
 def _seed(*key: int) -> int:
@@ -169,7 +180,10 @@ class Trainer:
     def __init__(self, cfg, modules: JointModules | None = None, *,
                  device: str | torch.device | None = None):
         self.cfg = cfg
-        _one_device(cfg.tpu.mesh_shape)
+        self.mesh = make_mesh(tuple(cfg.tpu.mesh_shape),
+                              tuple(cfg.tpu.mesh_axis_names))
+        self._main = is_main_rank()
+        self._dp = data_layout(self.mesh)
         self.device = (modules.device if modules is not None
                        else resolve_device(device))
         self.output_dir = Path(cfg.output_dir) / (cfg.name or "default")
@@ -180,6 +194,9 @@ class Trainer:
             cfg, device=self.device, init_seed=int(cfg.seed))
         self.state = init_train_state(self.modules, cfg)
         self._load_mica_pretrained()
+        if self.mesh.shape[MODEL_AXIS] > 1:
+            shard_state_dp_tp(self.mesh, self.modules, self.state,
+                              int(cfg.tpu.get("tp_min_channels", 128)))
         self.global_step = 0
         self.epoch = 0
 
@@ -195,7 +212,11 @@ class Trainer:
                 update_ema_every=int(ema_cfg["update_ema_every"]) * accum,
                 step_start_ema=int(ema_cfg["step_start_ema"]) * accum)
         vis_on = int(cfg.train.get("vis_steps", 0)) > 0
-        self._train_step = make_train_step(ema_cfg, with_vis=vis_on)
+        # data parallel: this rank's rows of each batch, the gradients
+        # averaged over the data axis, the metrics global-batch means
+        self._train_step = pjit_train_step(
+            make_train_step(ema_cfg, with_vis=vis_on), self.mesh,
+            batch_argnum=2)
         # train.val_use_ema: evaluate with the EMA's UNet weights; the
         # best-model selection (evaluate_MICA) keeps the live weights
         self._val_use_ema = bool(cfg.train.get("val_use_ema", False))
@@ -223,9 +244,20 @@ class Trainer:
         self.metrics_writer = MetricsWriter(
             self.output_dir / cfg.path.log,
             enable_wandb=bool(cfg.enable_wandb),
-            wandb_cfg=dict(cfg.wandb) if cfg.enable_wandb else None)
+            wandb_cfg=dict(cfg.wandb) if cfg.enable_wandb else None) \
+            if self._main else _NoWriter()
 
     # ------------------------------------------------------------------
+    def _written(self, write, *args):
+        """``write(*args)`` on rank 0; every rank returns once it is
+        done, also where it raised (a swallowed failure must not leave the
+        other ranks at the barrier while rank 0 goes on to the next
+        collective)."""
+        try:
+            return write(*args) if self._main else None
+        finally:
+            barrier()
+
     def _generator(self, *key: int) -> torch.Generator:
         """The device generator, seeded from ``(cfg.seed + 1, *key)``."""
         return self._gen.manual_seed(_seed(int(self.cfg.seed) + 1, *key))
@@ -265,7 +297,12 @@ class Trainer:
         """Resume from the newest checkpoint (None), a step number, or a
         ``.npz`` file: a train state (the port's or the JAX package's), or
         else a converted reference UNet (the SR branch only).  Returns
-        False where there is nothing to resume."""
+        False where there is nothing to resume.  Under a model axis the
+        whole file is read, then split."""
+        with unsharded(self.modules, self.state):
+            return self._load_checkpoint(path_or_step)
+
+    def _load_checkpoint(self, path_or_step) -> bool:
         t0 = time.perf_counter()
         reset = bool(self.cfg.train.reset_optimizer)
         if isinstance(path_or_step, str) and path_or_step.endswith(".npz"):
@@ -314,9 +351,11 @@ class Trainer:
 
     def save_checkpoint(self) -> None:
         t0 = time.perf_counter()
-        path = self.ckpt.save(self.global_step, self.modules, self.state,
-                              {"global_step": self.global_step,
-                               "epoch": self.epoch})
+        with unsharded(self.modules, self.state):
+            self._written(
+                self.ckpt.save, self.global_step, self.modules, self.state,
+                {"global_step": self.global_step, "epoch": self.epoch})
+        path = npz_step_path(self.ckpt_dir, self.global_step)
         self._saved_step = self.global_step
         self._log_io("ckpt_write", time.perf_counter() - t0, path)
         if self.cfg.get("log_wandb_ckpt"):
@@ -327,6 +366,10 @@ class Trainer:
         (``{prefix}_gen.npz``, and in the train phase ``{prefix}_opt.npz``'s
         counters and Adam moments) or from a converted reference UNet
         ``.npz``; the EMA restarts from the loaded weights."""
+        with unsharded(self.modules, self.state):
+            return self._load_sr_pretrained(prefix)
+
+    def _load_sr_pretrained(self, prefix: str) -> bool:
         gen_path = f"{prefix}_gen.npz"
         sr_tmpl = export_jax_params(self.modules)["sr"]
         if Path(gen_path).exists():
@@ -426,11 +469,23 @@ class Trainer:
         mica_eval_steps = int(cfg.mica.train.eval_steps)
         vis_steps = int(cfg.train.get("vis_steps", 0))
 
+        dp = self.mesh.shape[DATA_AXIS]
+
+        def batches():
+            for raw in self.train_loader:
+                batch = self.step_batch(raw)
+                n = next(iter(batch.values())).shape[0]
+                if n % dp:
+                    raise ValueError(
+                        f"flattened batch {n} not divisible by the mesh's "
+                        f"data axis ({dp}); adjust mica.datasets.batch_size"
+                        f"/K or tpu.mesh_shape")
+                yield batch
+
         # continue the data where the run stopped
         self.train_loader.skip(self.global_step)
-        it = prefetch_to_device(
-            (self.step_batch(raw) for raw in self.train_loader),
-            size=int(cfg.tpu.prefetch_depth), device=self.device)
+        it = prefetch_to_device(batches(), size=int(cfg.tpu.prefetch_depth),
+                                device=self.device)
         st = self.stats
         window: list[dict] = []
         steps_per_epoch = max(1, len(self.train_loader))
@@ -482,7 +537,8 @@ class Trainer:
                 if vis is not None and vis_steps \
                         and self.global_step % vis_steps == 0:
                     try:
-                        cadenced("vis", self.visualize_train, vis)
+                        cadenced("vis", self._written, self.visualize_train,
+                                 vis)
                     except Exception:
                         logger.exception("train visualization failed")
                 if ckpt_steps and self.global_step % ckpt_steps == 0:
@@ -532,8 +588,10 @@ class Trainer:
             logger.info("[BEST] %s @ step %d (snapshot writes disabled)",
                         tag, self.global_step)
             return
-        save_train_state(self.output_dir / "best_models" / f"{tag}.npz",
-                         self.modules, self.state, self._meta())
+        with unsharded(self.modules, self.state):
+            self._written(save_train_state,
+                          self.output_dir / "best_models" / f"{tag}.npz",
+                          self.modules, self.state, self._meta())
         logger.info("[BEST] saved %s @ step %d", tag, self.global_step)
 
     def evaluate_MICA(self) -> dict:
@@ -544,11 +602,20 @@ class Trainer:
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(
             int(cfg.seed) + EVAL_SEED_OFFSET)
+        dp = self.mesh.shape[DATA_AXIS]
         acc = []
         for raw in self.mica_val_loader.epoch():
             batch = shard_batch(self.step_batch(raw), self.device)
-            m = self._eval_step(self.modules, batch, generator=gen)
-            acc.append(torch.stack([m["l_sr"], m["l_mica"]]))
+            n = next(iter(batch.values())).shape[0]
+            # full batches over the data axis, as the train step's; a
+            # final batch it does not divide, whole on every rank
+            lay = self._dp if n % dp == 0 else Layout()
+            with use(lay):
+                m = self._eval_step(self.modules,
+                                    local_rows(batch, lay.batch),
+                                    generator=gen)
+                acc.append(torch.stack([mean_metric(m["l_sr"]),
+                                        mean_metric(m["l_mica"])]))
         if not acc:
             return {}
         l_sr, l_mica = torch.stack(acc).double().mean(0).tolist()
@@ -561,14 +628,22 @@ class Trainer:
         if self.best_model_loss is None or combined < self.best_model_loss:
             self.best_model_loss = combined
             if bool(cfg.train.get("best_snapshots", True)):
-                save_train_state(self.output_dir / "best_model.npz",
-                                 self.modules, self.state, self._meta())
-                (self.output_dir / "best_model.txt").write_text(
-                    "<epoch:{:3d}, iter:{:8,d}, loss: {:4f}> ".format(
-                        self.epoch, self.global_step, self.best_model_loss))
+                with unsharded(self.modules, self.state):
+                    self._written(self._write_best)
                 logger.info("New best model saved.")
         self.best_model(combined, l_mica)
         return {"l_sr": l_sr, "l_mica": l_mica, "combined": combined}
+
+    def _write_best(self) -> None:
+        save_train_state(self.output_dir / "best_model.npz", self.modules,
+                         self.state, self._meta())
+        (self.output_dir / "best_model.txt").write_text(
+            "<epoch:{:3d}, iter:{:8,d}, loss: {:4f}> ".format(
+                self.epoch, self.global_step, self.best_model_loss))
+
+    def _append_val_metrics(self, res: dict) -> None:
+        with (self.output_dir / "val_metrics.jsonl").open("a") as f:
+            f.write(json.dumps(res) + "\n")
 
     def evaluate(self) -> dict:
         """The val loop: ``cfg.sample`` samples a face, PSNR/SSIM of the SR
@@ -606,7 +681,7 @@ class Trainer:
                     self.metrics_writer.log_eval_data(
                         inf_u8, sr_u8, hr_u8, psnrs[-1], ssims[-1])
                 last_verts = out["verts"]
-                if bi < int(cfg.train.val_n_img):
+                if bi < int(cfg.train.val_n_img) and self._main:
                     base = Path(str(raw.get("path_sr",
                                             [f"{bi:04d}"])[0])).stem
                     name = (base if n_samples == 1 else
@@ -632,13 +707,12 @@ class Trainer:
                "step": self.global_step}
         logger.info("val @%d: psnr %.3f ssim %.4f", self.global_step,
                     res["psnr"], res["ssim"])
-        with (self.output_dir / "val_metrics.jsonl").open("a") as f:
-            f.write(json.dumps(res) + "\n")
+        self._written(self._append_val_metrics, res)
         self.metrics_writer.add_scalar("val/psnr", res["psnr"],
                                        self.global_step)
         self.metrics_writer.add_scalar("val/ssim", res["ssim"],
                                        self.global_step)
-        if last_verts is not None:
+        if last_verts is not None and self._main:
             try:
                 from ..eval.renderer import render_meshes, visualize_grid
 

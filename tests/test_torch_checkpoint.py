@@ -6,6 +6,7 @@ and 2), a converted reference UNet ``.npz``, the numpy
 val step on replayed noise; and the ported converters held leaf for leaf
 against ``sr3d_tpu/utils/convert.py``."""
 
+import shutil
 from pathlib import Path
 from typing import NamedTuple
 
@@ -52,6 +53,17 @@ def _jcfg(**kw):
 
 def _tcfg(**kw):
     return _tune(t_update(t_defaults(), CONFIG), **kw)
+
+
+@pytest.fixture(autouse=True)
+def _free_disk(request):
+    """A test's train states run to hundreds of MiB, and pytest keeps its
+    last runs' temp dirs: drop them when it ends."""
+    path = (request.getfixturevalue("tmp_path")
+            if "tmp_path" in request.fixturenames else None)
+    yield
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -167,7 +179,8 @@ def served(jax_state, tmp_path_factory):
         p = Predictor(cfg, mods, state, batch_size=2, use_ema=use_ema)
         refs[use_ema] = jax.tree.map(np.asarray, p._step(
             p.modules, p.state, {"SR": jnp.asarray(cond)}, key))
-    return path, cond, _replayed_noise(key, cond.shape, 4), refs
+    yield path, cond, _replayed_noise(key, cond.shape, 4), refs
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 @pytest.mark.parametrize("use_ema", [False, True])

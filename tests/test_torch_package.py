@@ -59,8 +59,9 @@ def test_config_merges_like_jax(name):
 
 
 def test_import_leaves_jax_out():
-    """Importing every module of the port pulls in no jax, flax, optax or
-    sr3d_tpu (a fresh interpreter, so this file's imports don't count)."""
+    """Importing every module of the port, and the ranks' module of its
+    parallel tests, pulls in no jax, flax, optax or sr3d_tpu (a fresh
+    interpreter, so this file's imports don't count)."""
     mods = [m.name for m in pkgutil.walk_packages(sr3d_torch.__path__,
                                                    "sr3d_torch.")]
     assert "sr3d_torch.serve" in mods and len(mods) > 15
@@ -78,7 +79,11 @@ def test_import_leaves_jax_out():
             "sr3d_torch.eval.validator", "sr3d_torch.eval.tester",
             "sr3d_torch.eval.now_protocol", "sr3d_torch.data.creation",
             "sr3d_torch.data.prepare", "sr3d_torch.utils.landmarks",
-            "sr3d_torch.utils.bootstrap"} <= set(mods)
+            "sr3d_torch.utils.bootstrap", "sr3d_torch.parallel",
+            "sr3d_torch.parallel.mesh", "sr3d_torch.parallel.layout",
+            "sr3d_torch.parallel.collectives",
+            "sr3d_torch.parallel.steps"} <= set(mods)
+    mods.append("tests.test_torch_parallel_worker")
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

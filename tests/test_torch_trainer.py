@@ -16,6 +16,7 @@ on the CPU at the tiny config:
   pretrained MICA files, the branch trainers' flags."""
 
 import functools
+import shutil
 import sys
 from pathlib import Path
 
@@ -62,6 +63,17 @@ OVERLAY = {
                                        "ema_decay": 0.9}}},
     "tpu": {"compute_dtype": "float32"},
 }
+
+
+@pytest.fixture(autouse=True)
+def _free_disk(request):
+    """A test's checkpoints and workspaces run to hundreds of MiB, and
+    pytest keeps its last runs' temp dirs: drop them when it ends."""
+    path = (request.getfixturevalue("tmp_path")
+            if "tmp_path" in request.fixturenames else None)
+    yield
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -405,7 +417,8 @@ def two_steps(tmp_path_factory):
     tr = _trainer(ws, "run")
     tr.prepare_data()
     tr.training_step(max_steps=2)
-    return ws, tr
+    yield ws, tr
+    shutil.rmtree(ws, ignore_errors=True)
 
 
 def test_ckt_takes_a_step_a_state_or_a_converted_unet(two_steps, tmp_path):
@@ -538,10 +551,12 @@ def test_unported_trainers_raise(flag, monkeypatch):
 
 
 def test_more_than_one_device_raises(tmp_path):
+    """A mesh larger than the world (one process, no group) raises
+    ``ValueError``, as JAX's ``make_mesh`` does."""
     tcfg, _ = _cfgs()
     tcfg.output_dir = str(tmp_path)
     tcfg.tpu.mesh_shape = [2, 1]
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         Trainer(tcfg, device="cpu")
 
 
