@@ -31,7 +31,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    to 1, attention at 64, 16, 4 and 1 tokens) and at the flagship's
    spatial bands over 2 and 4 ranks (the band GN as stats + the apply
    kernel with the whole image's count; the int8 convs on a band and its
-   halo), checks only; the GN+Swish and attention gradients against autograd
+   halo), checks only; the GN+Swish backward kernels (``gn_swish_backward``)
+   against their closed form and autograd of the plain version at the
+   widest training input ([4, 192, 128, 128]) and at B = 8, bf16 and fp32,
+   timed against the closed form, the backward alone of autograd through
+   ``F.silu(F.group_norm)`` and the bound, bit-equal repeats on both plan
+   paths (one pass over a cluster; three passes), then at every GN input
+   of the training paths (the flagship's and the DDPM family's UNet in
+   train mode and every ``configs/*.yml`` UNet at B = 4, 2, 1), checks
+   only; the GN+Swish and attention gradients against autograd
    of their plain versions; then the whole serving step and one whole train
    step (model2, then model3 flow-through) on a tiny config, on the GPU
    against the plain versions on the CPU, and model3's gradients on the GPU
@@ -112,11 +120,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    each rank's launches and peak memory, labelled as 2 ranks sharing one
    H100 over gloo (overhead, not scaling).
 
+Every training phase (6, 7, 10, 11, 13 (c) and (d)) requires that it
+launched ``gn_swish_backward`` and called GN+Swish's plain version (the
+forward or the backward's closed form) no time on the card
+(``watch_plain_gn``).
+
 The line before the last lists the kernels as JSON (top-level numbers at
 the widest main-path shape in bf16, the shapes above under ``shapes``,
 GN+Swish's slowest shape against the library call under ``main_path``;
-``launches`` from phase 4's DDIM-25 requests, but the int8 conv's from
-phase 9's int8 CLI run, its main path; ``cli_launches`` from that run,
+``launches`` from phase 4's DDIM-25 requests (``serving_launches``), but
+the int8 conv's from phase 9's int8 CLI run, its main path, and
+``gn_swish_backward``'s from phase 6's three train steps (its top-level
+numbers at [4, 192, 128, 128]); ``cli_launches`` from that run,
 ``train_launches`` from phase 6's three steps, ``model3_launches`` from
 phase 7's three, ``trainer_launches`` from phase 10, ``sr_only_launches``
 from phase 11's SR-only CLI calls, ``legacy_launches`` from its
@@ -156,6 +171,11 @@ MODEL3 = ROOT / "configs" / "sr_sr3_VGGF2_16_128_model3.yml"
 TINY = ROOT / "configs" / "tiny_8_16_model2.yml"
 GN_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 8e-3)}
 ATTN_TOL = GN_TOL
+# dγ and dβ of the GN+Swish backward are fp32 sums of B·H·W terms (in any
+# input dtype), each term rounded differently (__expf, other orders), so
+# their error grows with the sum: atol (times the gradient's largest
+# entry) and rtol
+GN_BWD_SUM_TOL = (2e-5, 1e-5)
 # the conv kernels sum 9·C products in another order than cuDNN's fp32
 # convolution (TF32 off): ~1e-6 relative; bf16 outputs: one bf16 ulp
 CONV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 8e-3)}
@@ -165,6 +185,44 @@ def require(ok, what) -> None:
     """A check that stays on under ``python -O``."""
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+# calls of GN+Swish's plain versions (the forward, and the backward's closed
+# form) on CUDA tensors, counted once ``watch_plain_gn`` is installed: a
+# path on the card must make none
+PLAIN_GN = {"calls": 0}
+
+
+def watch_plain_gn() -> None:
+    """Count every call of ``gn_swish_reference`` and
+    ``gn_swish_backward_reference`` on a CUDA tensor in ``PLAIN_GN`` (the
+    module globals through which the wrappers reach them; once a
+    process)."""
+    import sr3d_torch.kernels.groupnorm_swish as gn
+
+    for name in ("gn_swish_reference", "gn_swish_backward_reference"):
+        fn = getattr(gn, name)
+        if getattr(fn, "watched", False):
+            continue
+
+        def counted(x, *a, _fn=fn, **k):
+            if x.is_cuda:
+                PLAIN_GN["calls"] += 1
+            return _fn(x, *a, **k)
+
+        counted.watched = True
+        setattr(gn, name, counted)
+
+
+def require_gn_backward(counts: dict, plain0: int, what: str) -> None:
+    """A training path on the card launched the GN+Swish backward kernel
+    and ran GN+Swish's plain version (forward or backward) no time since
+    ``PLAIN_GN["calls"]`` was ``plain0``."""
+    require(counts["gn_swish_backward"] > 0,
+            f"{what}: no gn_swish_backward launch: {counts}")
+    require(PLAIN_GN["calls"] == plain0,
+            f"{what}: GN+Swish's plain version ran on the card "
+            f"{PLAIN_GN['calls'] - plain0} times")
 
 
 def smi_line() -> str:
@@ -196,6 +254,29 @@ def device_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (5 * reps)
+
+
+def kernels_ms(fn, reps: int = 20) -> float:
+    """Device time of one ``fn()`` call without a CUDA graph (autograd's
+    backward of a forward that ran outside the clock, which a graph cannot
+    replay): the durations of the kernels of ``reps`` calls under
+    ``torch.profiler``, summed, over ``reps``.  Like ``device_ms`` it
+    leaves out the host's launch gaps (and, unlike it, the device's few
+    microseconds between kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sr3d_torch.profile_serving import _device_us
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / reps
 
 
 def _rotating(make, nbytes: int):
@@ -265,6 +346,210 @@ def main_path_gn_shapes() -> list[tuple[int, int, int, int]]:
         unet_mod.gn_swish, unet_mod.spatial_attention = saved
     return [(B, *chw) for B in MAIN_PATH_BATCHES
             for chw in sorted(seen, reverse=True)]
+
+
+# the GN+Swish backward, timed: the widest training input (the joint step's
+# N = 4 at 128² × 192) and at B = 8; then two shapes of the multi-pass
+# plan (H·W = 50: no 16-byte vectors; in fp32 a group of x and gy beyond a
+# cluster), checked
+GN_BWD_SHAPES = ((4, 192, 128, 128), (8, 192, 128, 128))
+GN_BWD_MULTIPASS = ((2, 64, 5, 10), (1, 512, 128, 128))
+# the joint step and the Trainer (N = 4), SR-only and DDPM training (2), 1
+TRAIN_BATCHES = (4, 2, 1)
+
+
+def train_gn_shapes() -> list[tuple[int, int, int, int, int]]:
+    """(B, C, H, W, groups) of every distinct GN+Swish input of the
+    training paths: the flagship config's UNet and the DDPM family's
+    (``which_model_G: ddpm``) in train mode at the training resolution, and
+    every ``configs/*.yml`` UNet (``trace_config``), at each batch size of
+    ``TRAIN_BATCHES``; meta-device traces, widest first."""
+    import sr3d_torch.models.sr3_unet as unet_mod
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    from sr3d_torch.models.networks import define_g
+
+    seen: set = set()
+
+    def record(x, gamma, beta, groups, eps=1e-5):
+        seen.add((*x.shape[1:], groups))
+        return x
+
+    cfg = update_cfg(get_cfg_defaults(), str(CONFIG))
+    hr = int(cfg.sr.datasets.train.r_resolution)
+    saved = unet_mod.gn_swish, unet_mod.spatial_attention
+    unet_mod.gn_swish = record
+    unet_mod.spatial_attention = lambda q, k, v, channels=None: q
+    try:
+        for which in ("sr3", "ddpm"):
+            cfg.sr.model.which_model_G = which
+            with torch.device("meta"), torch.no_grad():
+                unet, time_input = define_g(cfg.sr.model, remat=True)
+                unet.train()
+                unet(torch.zeros(1, int(cfg.sr.model.unet.in_channel), hr,
+                                 hr),
+                     torch.zeros(1, 1) if time_input == "gamma"
+                     else torch.zeros(1))
+    finally:
+        unet_mod.gn_swish, unet_mod.spatial_attention = saved
+    shapes = {(B, *s) for B in TRAIN_BATCHES for s in seen}
+    for path in sorted((ROOT / "configs").glob("*.yml")):
+        for B in TRAIN_BATCHES:
+            shapes |= trace_config(path, B, quant=False)["gn"]
+    return sorted(shapes, key=lambda s: (-math.prod(s[:4]), s))
+
+
+def _gn_bwd_inputs(dev, shape, dtype):
+    """Rotating (x, γ, β, gy) sets for the GN+Swish backward at ``shape``."""
+    def make(i):
+        g = torch.Generator(device=dev).manual_seed(50 + i)
+        x = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+        return (x.to(dtype),
+                torch.rand(shape[1], generator=g, device=dev) + 0.5,
+                torch.randn(shape[1], generator=g, device=dev) * 0.1,
+                torch.randn(shape, generator=g, device=dev).to(dtype))
+
+    return _rotating(make, 2 * math.prod(shape) * (
+        2 if dtype == torch.bfloat16 else 4))
+
+
+def _gn_bwd_check(x, gamma, beta, gy, G) -> tuple[tuple, float]:
+    """``gn_swish_backward`` against its closed form and against autograd
+    of ``gn_swish_reference`` on the card (dx: ``GN_TOL``; dγ, dβ:
+    ``GN_BWD_SUM_TOL`` of their largest entry); returns the kernel's
+    gradients and its largest error against the closed form."""
+    from sr3d_torch.kernels import gn_swish_backward
+    from sr3d_torch.kernels.groupnorm_swish import (
+        gn_swish_backward_reference,
+        gn_swish_reference,
+    )
+
+    got = gn_swish_backward(x, gamma, beta, gy, G)
+    ref = gn_swish_backward_reference(x, gamma, beta, gy, G)
+    ins = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    auto = torch.autograd.grad(gn_swish_reference(*ins, G), ins, gy)
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, other in (("closed form", ref), ("autograd", auto)):
+        for name, a, b in zip(("dx", "dgamma", "dbeta"), got, other):
+            e = float((a.float() - b.float()).abs().max())
+            atol, rtol = GN_TOL[x.dtype]
+            if name != "dx":
+                atol = GN_BWD_SUM_TOL[0] * float(b.abs().max())
+                rtol = GN_BWD_SUM_TOL[1]
+            require(torch.allclose(a.float(), b.float(), atol=atol,
+                                   rtol=rtol),
+                    f"gn_swish_backward {name} disagrees with the {what} at "
+                    f"{tuple(x.shape)} G={G} {x.dtype}: {e}")
+            if what == "closed form":
+                err = max(err, e)
+    return got, err
+
+
+def phase_gn_backward(dev) -> dict:
+    """The GN+Swish backward kernels (``gn_swish_backward``) against the
+    closed form and autograd of the plain version: timed at
+    ``GN_BWD_SHAPES`` against the closed form, the backward alone of
+    autograd through ``F.silu(F.group_norm)`` and the bound, bf16 and fp32;
+    bit-equal repeats on both plan paths; then at every GN input of the
+    training paths (bf16, checks only).  Returns its record."""
+    import torch.nn.functional as F
+
+    from sr3d_torch.kernels import gn_swish_backward
+    from sr3d_torch.kernels.groupnorm_swish import (
+        gn_bwd_plan,
+        gn_swish_backward_reference,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec: dict = {}
+    err = 0.0
+    G = 32
+    paths: dict = {}
+
+    def library_backward(a, dtype):
+        """The forward of F.silu(F.group_norm) outside the clock, and a
+        function that runs its backward alone (``kernels_ms``)."""
+        ins = [a[0].clone().requires_grad_(),
+               a[1].to(dtype).requires_grad_(),
+               a[2].to(dtype).requires_grad_()]
+        y = F.silu(F.group_norm(ins[0], G, ins[1], ins[2], 1e-5))
+        return lambda: torch.autograd.grad(y, ins, a[3], retain_graph=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        el = 2 if dtype == torch.bfloat16 else 4
+        for shape in GN_BWD_SHAPES + GN_BWD_MULTIPASS:
+            B, C, H, W = shape
+            (x, gamma, beta, gy), nxt = _gn_bwd_inputs(dev, shape, dtype)
+            plan = gn_bwd_plan(B, C, G, H * W, dtype, sms)
+            paths.setdefault(plan.path, []).append(
+                [B, C, H, W, _dtype_name(dtype)])
+            got, e = _gn_bwd_check(x, gamma, beta, gy, G)
+            err = max(err, e)
+            rep = all(all(torch.equal(a, b) for a, b in zip(
+                gn_swish_backward(x, gamma, beta, gy, G), got))
+                for _ in range(3))
+            require(rep, f"gn_swish_backward does not repeat bit for bit at "
+                         f"{shape} {dtype} ({plan.path})")
+            print(f"  gn backward {_dtype_name(dtype)} x={list(shape)} "
+                  f"G={G}: path {plan.path} ({plan.why}); max err vs the "
+                  f"closed form {e:.3g} (dx within GN_TOL {GN_TOL[dtype]}, "
+                  f"dgamma and dbeta within {GN_BWD_SUM_TOL} of their "
+                  f"largest entry), autograd of the plain version too; 3 "
+                  f"repeats bit for bit")
+            if shape in GN_BWD_MULTIPASS:
+                del x, gamma, beta, gy, nxt, got
+                continue
+            # the backward alone of the library call, on each rotating set
+            lib = [library_backward(a, dtype) for a in
+                   (nxt() for _ in range(max(2, math.ceil(
+                       128e6 / (2 * math.prod(shape) * el)))))]
+            it = {"i": 0}
+
+            def lib_next():
+                it["i"] = (it["i"] + 1) % len(lib)
+                return lib[it["i"]]()
+
+            t = {"ms": device_ms(lambda: gn_swish_backward(*nxt(), G)),
+                 "plain_ms": device_ms(
+                     lambda: gn_swish_backward_reference(*nxt(), G)),
+                 "library_ms": kernels_ms(lib_next)}
+            nbytes = 3 * math.prod(shape) * el + 4 * C * 4
+            b = bound(nbytes, 20 * math.prod(shape), torch.float32)
+            print(f"      kernel {t['ms']:.4f} ms, closed form "
+                  f"{t['plain_ms']:.4f}, backward of silu(group_norm) "
+                  f"{t['library_ms']:.4f}, bound {b[0]:.4f} ({b[1]}: read "
+                  f"x and gy, write dx)")
+            _record(rec, "gn_swish_backward",
+                    dtype == torch.bfloat16 and shape == GN_BWD_SHAPES[0], {
+                        "shape": list(shape), "dtype": _dtype_name(dtype),
+                        "path": plan.path, "cluster": plan.cluster, **t,
+                        "bound_ms": b[0], "bound_by": b[1]})
+            del x, gamma, beta, gy, nxt, got, lib
+
+    # every GN input of the training paths, in their dtype (bf16)
+    shapes = train_gn_shapes()
+    dtype = torch.bfloat16
+    for (B, C, H, W, g) in shapes:
+        (x, gamma, beta, gy), _ = _gn_bwd_inputs(dev, (B, C, H, W), dtype)
+        plan = gn_bwd_plan(B, C, g, H * W, dtype, sms)
+        paths.setdefault(plan.path, []).append([B, C, H, W, "bfloat16"])
+        err = max(err, _gn_bwd_check(x, gamma, beta, gy, g)[1])
+    require(set(paths) == {"onepass", "multipass"},
+            f"a plan path of the backward was not hit: {sorted(paths)}")
+    print(f"  gn backward bf16 at all {len(shapes)} GN inputs of the "
+          f"training paths (the flagship's UNet and the DDPM family's in "
+          f"train mode, every configs/*.yml UNet; B = "
+          f"{', '.join(map(str, TRAIN_BATCHES))}; H*W down to "
+          f"{min(s[2] * s[3] for s in shapes)}): against the closed form "
+          f"and autograd of the plain version (dx within GN_TOL, dgamma "
+          f"and dbeta within GN_BWD_SUM_TOL of their scale); paths "
+          f"{ {k: len(v) for k, v in paths.items()} } (multi-pass at "
+          f"{paths['multipass'][:6]}...)")
+    r = rec["gn_swish_backward"]
+    r["max_abs_err"] = err
+    r["training_shapes"] = len(shapes)
+    r["plan_paths"] = {k: len(v) for k, v in paths.items()}
+    return rec
 
 
 def _gn_inputs(dev, shape, dtype):
@@ -834,7 +1119,12 @@ def phase_conv_kernels(dev) -> dict:
 def phase_gradients(dev) -> None:
     """GN+Swish and attention through their autograd Functions (kernels
     forward) against autograd of their plain versions, on the card."""
-    from sr3d_torch.kernels import gn_swish, spatial_attention
+    from sr3d_torch.kernels import (
+        gn_swish,
+        launch_counts,
+        reset_launch_counts,
+        spatial_attention,
+    )
     from sr3d_torch.kernels.attention import spatial_attention_reference
     from sr3d_torch.kernels.groupnorm_swish import gn_swish_reference
 
@@ -858,15 +1148,28 @@ def phase_gradients(dev) -> None:
                 t = [a.to(dev).requires_grad_() for a in ins]
                 out = fn(*t)
                 require(out.grad_fn is not None, f"{name}: no grad_fn")
+                reset_launch_counts()
                 grads.append(torch.autograd.grad(out, t, gout.to(dev)))
+                if fn is kern and name == "gn_swish":
+                    require(launch_counts()["gn_swish_backward"] == 1,
+                            f"the GN+Swish gradient did not go through "
+                            f"gn_swish_backward: {launch_counts()}")
             torch.cuda.synchronize()
             e = max(float((a.float() - b.float()).abs().max())
                     for a, b in zip(*grads))
-            require(all(torch.allclose(a.float(), b.float(), atol=atol,
-                                       rtol=rtol) for a, b in zip(*grads)),
+            # GN's dγ and dβ: sums of B·H·W terms (GN_BWD_SUM_TOL)
+            tols = [(atol, rtol)] * 3 if name != "gn_swish" else [
+                (atol, rtol)] + [(GN_BWD_SUM_TOL[0] * float(b.abs().max()),
+                                  GN_BWD_SUM_TOL[1]) for b in grads[1][1:]]
+            require(all(torch.allclose(a.float(), b.float(), atol=t[0],
+                                       rtol=t[1])
+                        for a, b, t in zip(*grads, tols)),
                     f"{name} gradient disagrees {dtype}: {e}")
             print(f"  grad {name} {dtype}: max abs err {e:.3g} vs autograd "
-                  f"of the plain version (atol {atol}, rtol {rtol})")
+                  f"of the plain version (atol {atol}, rtol {rtol})"
+                  + ("; dgamma, dbeta within GN_BWD_SUM_TOL of their "
+                     "scale; backward: the gn_swish_backward kernel"
+                     if name == "gn_swish" else ""))
 
 
 def _leaf_ok(got: torch.Tensor, ref: torch.Tensor, rel: float) -> bool:
@@ -948,10 +1251,14 @@ def phase_tiny_train(dev) -> None:
     # GN per forward.  model2: 4 hand-off forwards, the loss forward and the
     # blocks' recompute in the backward; model3 also recomputes each of the
     # 4 checkpointed hand-off steps once
+    # each GN+Swish on the loss's tape has one backward: the loss forward's
+    # 17, and model3's 4 hand-off steps' 17 each
     want = {"model2": {"gn_swish": 4 * 17 + 17 + 16,
-                       "spatial_attention": 4 * 4 + 4 + 4},
+                       "spatial_attention": 4 * 4 + 4 + 4,
+                       "gn_swish_backward": 17},
             "model3": {"gn_swish": 2 * 4 * 17 + 17 + 16,
-                       "spatial_attention": 2 * 4 * 4 + 4 + 4}}
+                       "spatial_attention": 2 * 4 * 4 + 4 + 4,
+                       "gn_swish_backward": (1 + 4) * 17}}
     for variant in ("model2", "model3"):
         cfg.model = variant
         (m_c, g_c, p_c, lrs, _), (m_g, g_g, p_g, _, counts) = (
@@ -1083,8 +1390,9 @@ def phase_tiny_slice(dev) -> None:
     # the tiny UNet: 8 ResnetBlocks x 2 GN + the final block = 17 GN+Swish
     # and 4 attention blocks per forward; 8 DDIM steps
     require(counts == {"gn_stats": 0, "gn_swish": 8 * 17,
-                       "spatial_attention": 8 * 4, "conv3x3": 0,
-                       "fused_gn_swish_conv3x3": 0, "int8_conv": 0},
+                       "gn_swish_backward": 0, "spatial_attention": 8 * 4,
+                       "conv3x3": 0, "fused_gn_swish_conv3x3": 0,
+                       "int8_conv": 0},
             f"tiny-step launches {counts}")
     for k in ("sr", "identity", "verts", "lmk68"):
         require(errs[k] < 1e-3, f"tiny step {k} off by {errs[k]}")
@@ -1193,6 +1501,7 @@ def phase_training(dev, flame) -> tuple[dict, dict, float]:
                 f"losses not finite: {m}")
         return dt, torch.cuda.max_memory_allocated() / 2 ** 30, m
 
+    plain0 = PLAIN_GN["calls"]
     reset_launch_counts()
     ddim = [run("ddim") for _ in range(3)]
     ddim_counts = launch_counts()
@@ -1233,20 +1542,24 @@ def phase_training(dev, flame) -> tuple[dict, dict, float]:
             "EMA is not the warm-up copy of the parameters")
     # 27 checkpointed ResnetBlocWithAttn (54 GN, the mid attention) + the
     # final GN per forward; the hand-off's forwards, the loss forward and
-    # the blocks' recompute in the backward
+    # the blocks' recompute in the backward; one GN+Swish backward each of
+    # the loss forward's 55
     per = {"gn_stats": 0, "gn_swish": 55, "spatial_attention": 1}
     rec_ = {"gn_stats": 0, "gn_swish": 54, "spatial_attention": 1}
     for counts, steps, reps in ((ddim_counts, 25, 3), (anc_counts, T, 1)):
         want = {k: reps * ((steps + 1) * per[k] + rec_[k]) for k in per}
-        want.update(conv3x3=0, fused_gn_swish_conv3x3=0, int8_conv=0)
+        want.update(conv3x3=0, fused_gn_swish_conv3x3=0, int8_conv=0,
+                    gn_swish_backward=reps * 55)
         require(counts == want, f"train launches {counts}, want {want}")
+    require_gn_backward(anc_counts, plain0, "phase 6")
     print(f"    params moved (UNet, ArcFace head, mapping); frozen prefix "
           f"and its BN statistics unchanged; EMA step {state.ema.step} "
           f"(warm-up copy below step_start_ema "
           f"{cfg.sr.train.ema_scheduler.step_start_ema})")
     print(f"    launches, 3 DDIM steps: {ddim_counts}; T={T} step: "
           f"{anc_counts} (GN+Swish, one launch each: (hand-off + loss) x 55 "
-          f"+ 54 recompute)")
+          f"+ 54 recompute; its backward 55 a step, the kernel; GN+Swish's "
+          f"plain version never on the card)")
     print(f"    {smi_line()}")
     return ddim_counts, anc_counts, t_step
 
@@ -1320,6 +1633,7 @@ def phase_model3(dev, flame) -> dict:
                 "the frozen ArcFace prefix (weights or BN statistics) moved")
         return dt, torch.cuda.max_memory_allocated() / 2 ** 30, out, counts
 
+    plain0 = PLAIN_GN["calls"]
     n_unet = sum(p.numel() for p in mods.unet.parameters()) / 1e6
     print(f"[7] model3 train step ({MODEL3.name}), N={n} faces, unet "
           f"{n_unet:.1f}M params, flow-through (handoff_grad_scale "
@@ -1403,22 +1717,30 @@ def phase_model3(dev, flame) -> dict:
     per = {"gn_swish": 55, "spatial_attention": 1}
     rec_ = {"gn_swish": 54, "spatial_attention": 1}
 
+    # one GN+Swish backward each on the loss's tape: the loss forward's 55
+    # and, flow-through, each hand-off step's
+
     def want(steps: int, recomputed: int, reps: int = 1) -> dict:
         w = {k: reps * ((1 + steps + recomputed) * per[k] + rec_[k])
              for k in per}
         return dict(w, gn_stats=0, conv3x3=0, fused_gn_swish_conv3x3=0,
-                    int8_conv=0)
+                    int8_conv=0,
+                    gn_swish_backward=reps * (1 + recomputed) * 55)
 
     for what, got, w in (("(a)", a_counts, want(25, 25, 3)),
                          ("(b)", b[3], want(25, 0)),
                          ("(c)", c[3], want(T, T)),
                          ("hand-off alone", hand_counts,
                           dict(want(25, 25), gn_swish=50 * 55,
-                               spatial_attention=50))):
+                               spatial_attention=50,
+                               gn_swish_backward=25 * 55))):
         require(got == w, f"model3 {what} launches {got}, want {w}")
+    require_gn_backward(c[3], plain0, "phase 7")
     print(f"    launches: (a) 3 steps {a_counts}; (b) {b[3]}; (c) {c[3]} "
           f"(GN+Swish, one launch each: (1 + 2 x hand-off steps) x 55 + 54 "
-          f"flow-through, (1 + steps) x 55 + 54 severed)")
+          f"flow-through, (1 + steps) x 55 + 54 severed; its backward, the "
+          f"kernel, (1 + hand-off steps) x 55 flow-through, 55 severed; "
+          f"GN+Swish's plain version never on the card)")
     print(f"    {smi_line()}")
     return a_counts
 
@@ -1565,8 +1887,8 @@ def phase_cli(dev, ckpt: Path, tmp: Path) -> tuple[dict, dict]:
                     f"{mode} SR image {n}: {img.shape} {img.dtype}")
     chunks = 2   # 11 faces at batch 8
     common = {"gn_stats": 0, "gn_swish": chunks * 55 * 25,
-              "spatial_attention": chunks * 25, "conv3x3": 0,
-              "fused_gn_swish_conv3x3": 0}
+              "gn_swish_backward": 0, "spatial_attention": chunks * 25,
+              "conv3x3": 0, "fused_gn_swish_conv3x3": 0}
     for mode, n8 in (("int8", 58), ("bf16", 0)):
         want = dict(common, int8_conv=chunks * n8 * 25)
         require(runs[mode][1] == want,
@@ -1751,6 +2073,7 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
 
     import gc
 
+    plain0 = PLAIN_GN["calls"]
     reset_launch_counts()
     walls, peaks = {}, {}
     for tag, argv in (
@@ -1811,6 +2134,7 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
             f"state.step {int(leaves[2])}")
     require(counts["gn_swish"] > 0 and counts["spatial_attention"] > 0,
             f"the Trainer ran the plain versions: launches {counts}")
+    require_gn_backward(counts, plain0, "phase 10")
 
     # train -> checkpoint -> serve, all written by the port
     from sr3d_torch.config import get_cfg_defaults, update_cfg
@@ -1862,21 +2186,23 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
     return counts, overlay
 
 
-def _unet_launches(unet, remat: bool) -> tuple[int, int]:
-    """GN+Swish and attention launches of one train step of ``unet``: one
-    per module forward; under remat the checkpointed blocks' (all but
-    ``final_conv``'s GN) once more in the backward."""
+def _unet_launches(unet, remat: bool) -> tuple[int, int, int]:
+    """GN+Swish, attention and GN+Swish backward launches of one train step
+    of ``unet``: one per module forward; under remat the checkpointed
+    blocks' (all but ``final_conv``'s GN) once more in the backward; one
+    backward per GN+Swish module."""
     from sr3d_torch.models.sr3_unet import GroupNormSwish, SelfAttention
 
     gn = [n for n, m in unet.named_modules() if isinstance(m, GroupNormSwish)]
     attn = sum(isinstance(m, SelfAttention) for m in unet.modules())
     again = remat * sum(not n.startswith("final_conv") for n in gn)
-    return len(gn) + again, attn * (1 + remat)
+    return len(gn) + again, attn * (1 + remat), len(gn)
 
 
-def _want(gn: int, attn: int) -> dict:
-    return {"gn_stats": 0, "gn_swish": gn, "spatial_attention": attn,
-            "conv3x3": 0, "fused_gn_swish_conv3x3": 0, "int8_conv": 0}
+def _want(gn: int, attn: int, bwd: int = 0) -> dict:
+    return {"gn_stats": 0, "gn_swish": gn, "gn_swish_backward": bwd,
+            "spatial_attention": attn, "conv3x3": 0,
+            "fused_gn_swish_conv3x3": 0, "int8_conv": 0}
 
 
 def _jsonl(path: Path, tag: str) -> list[tuple[int, float]]:
@@ -1991,6 +2317,7 @@ def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
     from sr3d_torch.utils.bridge import state_dict_to_flax
 
     t_phase = time.perf_counter()
+    plain0 = PLAIN_GN["calls"]
     root = tmp / "staged"
     root.mkdir()
     with open(joint_overlay) as f:
@@ -2034,12 +2361,12 @@ def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
         require((int(d["iter"]), int(d["epoch"]), int(d["leaf_0"]))
                 == (6, 1, 6), "SR-only counters (iter, epoch, Adam count)")
     fresh = SRModel(cfg, device=dev)
-    n_gn, n_attn = _unet_launches(fresh.unet, True)       # a train step
-    fwd_gn, fwd_attn = _unet_launches(fresh.unet, False)  # a sampling step
+    n_gn, n_attn, n_bwd = _unet_launches(fresh.unet, True)  # a train step
+    fwd_gn, fwd_attn, _ = _unet_launches(fresh.unet, False)  # a sampling step
     for tag, n in (("4 steps", 4), ("resume +2", 2)):
-        require(calls[tag][0] == _want(n * n_gn, n * n_attn),
+        require(calls[tag][0] == _want(n * n_gn, n * n_attn, n * n_bwd),
                 f"SR-only {tag} launches {calls[tag][0]}, want {n} x "
-                f"({n_gn}, {n_attn})")
+                f"({n_gn}, {n_attn}, {n_bwd})")
     init = unet_leaves(fresh.unet)
     busy, gn_bwd = _profiled_sr_step(fresh, dev, hi)
     del fresh
@@ -2070,11 +2397,12 @@ def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
           f"{', '.join(f'{v:.2f}' for _, v in writes)} s, read in "
           f"{reads[0][1]:.2f} s; l_pix {l_pix[0][1]:.4f} -> "
           f"{l_pix[-1][1]:.4f}; launches {n_gn} GN+Swish, {n_attn} "
-          f"attention a step ({fwd_gn} + {n_gn - fwd_gn} recomputed; "
-          f"{fwd_attn} + {n_attn - fwd_attn}): {sr_counts}")
+          f"attention, {n_bwd} GN+Swish backward a step ({fwd_gn} + "
+          f"{n_gn - fwd_gn} recomputed; {fwd_attn} + "
+          f"{n_attn - fwd_attn}): {sr_counts}")
     print(f"      one step (B = 2) under torch.profiler: {busy[0]:.3f} s "
           f"wall, the device busy {busy[1]:.1f}% of it; GN+Swish backward "
-          f"(autograd of its plain version) {gn_bwd[0]} calls, host "
+          f"(the gn_swish_backward kernel) {gn_bwd[0]} calls, host "
           f"{gn_bwd[1]:.1f} ms = {gn_bwd[2]:.1f}% of the profiled step")
 
     # (b) the hand-over to the joint Trainer
@@ -2111,7 +2439,7 @@ def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
                                      "ckpt_0000000008.npz").exists(),
             f"hand-over: step {tr.global_step}")
     require(b_counts == _want(2 * (n_gn + S * fwd_gn),
-                              2 * (n_attn + S * fwd_attn)),
+                              2 * (n_attn + S * fwd_attn), 2 * n_bwd),
             f"hand-over launches {b_counts}")
     del tr
     print(f"  (b) the joint Trainer from the step-6 pair: UNet bit-equal, "
@@ -2146,8 +2474,8 @@ def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
         losses.append(float(met["l_pix"]))
         times.append(time.perf_counter() - t0)
     c_train = launch_counts()
-    d_gn, d_attn = _unet_launches(m.unet, True)
-    require(c_train == _want(2 * d_gn, 2 * d_attn),
+    d_gn, d_attn, d_bwd = _unet_launches(m.unet, True)
+    require(c_train == _want(2 * d_gn, 2 * d_attn, 2 * d_bwd),
             f"DDPM steps' launches {c_train}")
     require(all(math.isfinite(v) for v in losses)
             and not torch.equal(before, m.unet.conv_in.weight),
@@ -2161,7 +2489,7 @@ def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
     torch.cuda.synchronize()
     t_sample = time.perf_counter() - t0
     c_sample = launch_counts()
-    d_gn, d_attn = _unet_launches(m.unet, False)
+    d_gn, d_attn, _ = _unet_launches(m.unet, False)
     require(c_sample == _want(S * d_gn, S * d_attn),
             f"DDPM DDIM-25 launches {c_sample}")
     require(tuple(sr.shape) == (8, hi, hi, 3)
@@ -2263,7 +2591,8 @@ def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
     for tag, (n, k) in (("DDIM-25, 3 steps", (3, S)),
                         ("T=600, resume +1", (1, T))):
         require(calls[tag][0] == _want(n * (n_gn + k * fwd_gn),
-                                       n * (n_attn + k * fwd_attn)),
+                                       n * (n_attn + k * fwd_attn),
+                                       n * n_bwd),
                 f"legacy {tag} launches {calls[tag][0]}")
     legacy = {k: sum(c[0][k] for c in calls.values())
               for k in calls["DDIM-25, 3 steps"][0]}
@@ -2272,6 +2601,11 @@ def phase_staged(dev, tmp: Path, joint_overlay: Path) -> dict:
           f"{per[1]:.3f}, {per[2]:.3f}, {per[3]:.3f}; T=600 resumed call "
           f"{c1[1]:.1f} s, its step {per[4]:.3f} s; peak {c3[2]:.2f} / "
           f"{c1[2]:.2f} GiB; launches {legacy}")
+    for tag, c in (("SR-only", sr_counts), ("hand-over", b_counts),
+                   ("DDPM", c_train), ("legacy", legacy)):
+        require_gn_backward(c, plain0, f"phase 11 {tag}")
+    print(f"    every training call of phase 11 launched gn_swish_backward "
+          f"and ran GN+Swish's plain version no time on the card")
     print(f"    phase 11 in {time.perf_counter() - t_phase:.1f} s; "
           f"{smi_line()}")
     return {"sr_only": sr_counts, "legacy": legacy}
@@ -2549,9 +2883,9 @@ def phase_tools(dev, tmp: Path, trainer_ckpt: Path,
                         "--batch", "8"]) == 0, "serving the converted UNet")
     torch.cuda.synchronize()
     t_cli, counts = time.perf_counter() - t0, launch_counts()
-    want = {"gn_stats": 0, "gn_swish": 55 * 25, "spatial_attention": 25,
-            "conv3x3": 0, "fused_gn_swish_conv3x3": 0,
-            "int8_conv": 58 * 25}
+    want = {"gn_stats": 0, "gn_swish": 55 * 25, "gn_swish_backward": 0,
+            "spatial_attention": 25, "conv3x3": 0,
+            "fused_gn_swish_conv3x3": 0, "int8_conv": 58 * 25}
     require(counts == want, f"served request launches {counts}, want {want}")
     require(len(list((root / "served").rglob("*_sr.png"))) == 8,
             "the served bundles")
@@ -3002,6 +3336,7 @@ def _par_rank(rank: int, world: int, port: int, spec_path: str) -> None:
         torch.cuda.set_device(0)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    watch_plain_gn()
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:
@@ -3169,9 +3504,11 @@ def _par_cli(spec, dev, name: str, steps: int):
 
     argv = ["-p", "train", "-c", spec["overlays"][name], "--max-steps",
             str(steps)]
+    plain0 = PLAIN_GN["calls"]
     _, dt, counts, peak = _par_measure(dev, lambda: cli_main(argv,
                                                              device=dev))
-    return None, dt, counts, peak
+    # the calls of GN+Swish's plain version on the card during the call
+    return PLAIN_GN["calls"] - plain0, dt, counts, peak
 
 
 def _par_job_trainer_dp(spec, dev):
@@ -3508,9 +3845,14 @@ def phase_parallel(dev, flame_kw: dict, tmp: Path, overlay: Path,
                 f"gap ratio {PAR_CKPT_WORST})")
         lines = []
         for r, res in enumerate(ranks):
-            _, dt, c, peak = res[f"trainer_{tag}"]
+            plain, dt, c, peak = res[f"trainer_{tag}"]
             require(c["gn_swish"] > 0 and c["spatial_attention"] > 0,
                     f"{tag} trainer launches {c}")
+            if dev.type == "cuda":
+                require(c["gn_swish_backward"] > 0 and plain == 0,
+                        f"({c_}) {tag} trainer rank {r}: gn_swish_backward "
+                        f"launches {c['gn_swish_backward']}, GN+Swish's "
+                        f"plain version on the card {plain} times")
             add(c)
             lines.append(f"rank {r}: {dt:.1f} s, peak {peak:.2f} GiB, "
                          f"launches {c}")
@@ -3568,6 +3910,7 @@ def main() -> int:
     from sr3d_torch.models.flame import synthetic_flame
     from sr3d_torch.serve import Predictor
 
+    watch_plain_gn()
     # 1. device
     dev = torch.device("cuda")
     print(f"[1] device: {smi_line()}  torch {torch.__version__} cuda "
@@ -3589,6 +3932,7 @@ def main() -> int:
     # 3. kernels against their plain versions; the slices on a tiny input
     print("[3] kernels vs plain versions (device times, CUDA graphs)")
     rec = phase_kernels(dev)
+    rec.update(phase_gn_backward(dev))
     rec.update(phase_conv_kernels(dev))
     print("    conv3x3 and fused_gn_swish_conv3x3 are on no model path (as "
           "in the JAX package): 0 launches on the main paths")
@@ -3628,8 +3972,8 @@ def main() -> int:
             f"embedding norms {n}")
     chunks = 2
     want = {"gn_stats": 0, "gn_swish": chunks * 55 * 25,
-            "spatial_attention": chunks * 25, "conv3x3": 0,
-            "fused_gn_swish_conv3x3": 0, "int8_conv": 0}
+            "gn_swish_backward": 0, "spatial_attention": chunks * 25,
+            "conv3x3": 0, "fused_gn_swish_conv3x3": 0, "int8_conv": 0}
     require(ddim_counts == want, f"DDIM launches {ddim_counts}, want {want}")
     print(f"    request of 8: {t_a * 1e3:.1f} ms = {8 / t_a:.2f} faces/s; "
           f"request of 3 (padded to 8): {t_b * 1e3:.1f} ms")
@@ -3649,8 +3993,9 @@ def main() -> int:
     dpm_counts = launch_counts()
     check_outputs(out_d, 8, 5023, 300)
     require(dpm_counts == {"gn_stats": 0, "gn_swish": 55 * 25,
-                           "spatial_attention": 25, "conv3x3": 0,
-                           "fused_gn_swish_conv3x3": 0, "int8_conv": 0},
+                           "gn_swish_backward": 0, "spatial_attention": 25,
+                           "conv3x3": 0, "fused_gn_swish_conv3x3": 0,
+                           "int8_conv": 0},
             f"dpm++ launches {dpm_counts}")
     print(f"    dpm++ (2M, eta 0, marginal init, 25 steps), request of 8: "
           f"{t_d * 1e3:.1f} ms = {8 / t_d:.2f} faces/s; outputs finite, "
@@ -3666,8 +4011,9 @@ def main() -> int:
     check_outputs(out_c, 1, 5023, 300)
     T = 600
     require(anc_counts == {"gn_stats": 0, "gn_swish": 55 * T,
-                           "spatial_attention": T, "conv3x3": 0,
-                           "fused_gn_swish_conv3x3": 0, "int8_conv": 0},
+                           "gn_swish_backward": 0, "spatial_attention": T,
+                           "conv3x3": 0, "fused_gn_swish_conv3x3": 0,
+                           "int8_conv": 0},
             f"ancestral launches {anc_counts}")
     print(f"[5] ancestral T={T}, one face: {t_c:.2f} s (first request, "
           f"includes cuDNN plan selection at batch 1); launches {anc_counts}")
@@ -3709,6 +4055,10 @@ def main() -> int:
                      "sr3d_tpu/kernels/groupnorm_swish.py:40"),
         "gn_swish": ("sr3d_torch/kernels/csrc/groupnorm_swish.cu",
                      "sr3d_tpu/kernels/groupnorm_swish.py:178"),
+        "gn_swish_backward": (
+            "sr3d_torch/kernels/csrc/groupnorm_swish.cu",
+            "sr3d_tpu/kernels/groupnorm_swish.py:96 (XLA's autodiff of "
+            "groupnorm_swish_reference; no Pallas kernel)"),
         "spatial_attention": ("sr3d_torch/kernels/csrc/attention.cu",
                               "sr3d_tpu/kernels/attention.py:48"),
         "fused_gn_swish_conv3x3": ("sr3d_torch/kernels/csrc/conv3x3.cu",
@@ -3722,12 +4072,15 @@ def main() -> int:
         r = rec[name]
         # launches: the serving requests' (phase 4, bf16); int8_conv's main
         # path is the CLI's int8 default (phase 9), gn_stats's the spatial
-        # request of phase 13 (b) (summed over phase 13's paths)
-        main_counts = {"int8_conv": cli_counts,
-                       "gn_stats": par_counts}.get(name, ddim_counts)
+        # request of phase 13 (b) (summed over phase 13's paths),
+        # gn_swish_backward's training (phase 6's three steps)
+        main_counts = {"int8_conv": cli_counts, "gn_stats": par_counts,
+                       "gn_swish_backward": train_counts
+                       }.get(name, ddim_counts)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": main_counts[name],
+                        "serving_launches": ddim_counts[name],
                         "cli_launches": cli_counts[name],
                         "train_launches": train_counts[name],
                         "model3_launches": model3_counts[name],
@@ -3745,7 +4098,7 @@ def main() -> int:
             kernels[-1]["repo_config_shapes"] = len(config_shapes[name])
         for extra in ("main_path", "cudnn_bf16_ms", "cold_ms",
                       "cold_bound_ms", "convs_per_forward", "forward_ms",
-                      "forward_launches"):
+                      "forward_launches", "training_shapes", "plan_paths"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(f"chip_smoke: every phase passed in "

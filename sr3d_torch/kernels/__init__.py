@@ -7,10 +7,11 @@ its kernel for a CUDA tensor, and counts its launches in ``.launches``.
 from .attention import spatial_attention
 from .conv3x3 import conv3x3
 from .fused_block import fused_gn_swish_conv3x3
-from .groupnorm_swish import gn_stats, gn_swish
+from .groupnorm_swish import gn_stats, gn_swish, gn_swish_backward
 from .int8_conv import int8_conv
 
 WRAPPERS = {"gn_stats": gn_stats, "gn_swish": gn_swish,
+            "gn_swish_backward": gn_swish_backward,
             "spatial_attention": spatial_attention, "conv3x3": conv3x3,
             "fused_gn_swish_conv3x3": fused_gn_swish_conv3x3,
             "int8_conv": int8_conv}

@@ -12,9 +12,12 @@ a group fits, else ``two_pass`` (``gn_stats``, then the apply kernel).  It is
 pure Python, so the CPU tests hold its choices.
 
 ``gn_swish`` is differentiable: on CUDA a ``torch.autograd.Function`` runs
-the kernels forward and, backward, autograd of the plain version recomputed
-from the saved ``x`` (the JAX train step, too, differentiates its XLA
-reference and has no GN backward kernel).
+the forward kernels, and its backward ``gn_swish_backward``, the backward
+kernels (``gn_bwd_plan``: one pass over a cluster holding a group's x and
+gy, or three passes).  Their plain twin is the closed form
+``gn_swish_backward_reference``; the JAX train step takes the same gradient
+by XLA's autodiff of its reference and has no GN backward kernel.  On the
+CPU ``gn_swish`` is the plain version, differentiated by autograd.
 
 A wrapper runs the plain PyTorch version for a CPU tensor and the kernel for
 a CUDA tensor; it never falls back from one to the other.  Each wrapper
@@ -37,6 +40,9 @@ GN_THREADS = 256             # threads of a one-pass CTA, at most
 GN_SHARE_BYTES = 49152       # a CTA's share of a group, where it can be ...
 GN_CTA_BYTES = 65536         # ... and at most (the kernel's shared memory)
 GN_MAX_CLUSTER = 8           # the portable cluster size
+GN_BWD_SHARE_BYTES = 65536   # a backward CTA's x + gy share, where it can be
+GN_BWD_CTA_BYTES = 196608    # ... and at most (the kernel's shared memory)
+GN_BWD_MAX_CG = 64           # channels a group, at most, on the one-pass path
 
 
 @dataclass(frozen=True)
@@ -84,12 +90,82 @@ def gn_plan(B: int, C: int, G: int, HW: int, dtype: torch.dtype,
                              f"bytes each, per group", S, T, n)
 
 
+@dataclass(frozen=True)
+class GnBwdPlan:
+    """How one ``gn_swish_backward`` call runs on the card.  ``path`` is
+    ``"onepass"`` (``gn_bwd_onepass_kernel``: a cluster of ``cluster`` CTAs
+    of ``threads`` threads per (b, group), each rank holding its share of
+    the group's ``group_vectors`` 16-byte vectors of x and as many of gy in
+    shared memory) or ``"multipass"`` (``gn_stats``' kernel, then
+    ``gn_bwd_reduce_kernel`` and ``gn_bwd_dx_kernel``); ``why`` says why."""
+
+    path: str
+    why: str
+    cluster: int = 0
+    threads: int = 0
+    group_vectors: int = 0
+
+
+def gn_bwd_plan(B: int, C: int, G: int, HW: int, dtype: torch.dtype,
+                sm_count: int = 132) -> GnBwdPlan:
+    """The backward kernels for NCHW x ``[B, C, H, W]`` (HW = H·W) in ``G``
+    groups on a card with ``sm_count`` SMs.  As ``gn_plan``, with a rank's
+    share counting x and gy: the cluster grows (1, 2, 4, 8) while a share
+    exceeds ``GN_BWD_SHARE_BYTES``, or while there are fewer than two CTAs
+    an SM and a share keeps ≥ 16 KB; one thread per vector of x in the
+    share, up to ``GN_THREADS``.  Groups of more than ``GN_BWD_MAX_CG``
+    channels, H·W not a multiple of a 16-byte vector and shares above
+    ``GN_BWD_CTA_BYTES`` take the multi-pass path."""
+    per_vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    if HW % per_vec:
+        return GnBwdPlan("multipass", f"H·W = {HW} is not a multiple of the "
+                                      f"{per_vec} values of a 16-byte vector")
+    cg = C // G
+    if cg > GN_BWD_MAX_CG:
+        return GnBwdPlan("multipass", f"{cg} channels a group, more than "
+                                      f"the one-pass kernel's "
+                                      f"{GN_BWD_MAX_CG}")
+    n = cg * HW // per_vec
+    S = 1
+    while S < GN_MAX_CLUSTER and (
+            32 * -(-n // S) > GN_BWD_SHARE_BYTES
+            or (B * G * S < 2 * sm_count and 32 * -(-n // S) >= 2 * 16384)):
+        S *= 2
+    share = -(-n // S)
+    if 32 * share > GN_BWD_CTA_BYTES:
+        return GnBwdPlan("multipass", f"a group's x and gy, {32 * n} bytes, "
+                                      f"exceed a cluster of {GN_MAX_CLUSTER} "
+                                      f"CTAs' {GN_BWD_CTA_BYTES} bytes each")
+    T = min(GN_THREADS, 32 * -(-share // 32))
+    return GnBwdPlan("onepass", f"{S} CTA(s) of {T} threads, {32 * share} "
+                                f"bytes of x and gy each, per group", S, T, n)
+
+
 def gn_stats_reference(x: torch.Tensor, channels_last: bool = False
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (Σx, Σx²) over (H, W) in fp32: ``[B, C]`` each."""
     xf = x.float()
     dims = (1, 2) if channels_last else (2, 3)
     return xf.sum(dim=dims), (xf * xf).sum(dim=dims)
+
+
+def _group_moments(s: torch.Tensor, q: torch.Tensor, n_per_group: float,
+                   groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(B, G) mean and one-pass variance ``E[x²] − E[x]²`` (not yet
+    clamped) from the per-channel moments ``[B, C]``, fp32."""
+    B, C = s.shape
+    cg = C // groups
+    g_mean = s.view(B, groups, cg).sum(-1) / n_per_group
+    return g_mean, (q.view(B, groups, cg).sum(-1) / n_per_group
+                    - g_mean * g_mean)
+
+
+def _per_channel(t: torch.Tensor, C: int) -> torch.Tensor:
+    """``[B, G]`` → ``[B, C]``, each group's value on its channels: a
+    broadcast, not repeat_interleave, whose backward is then a sum, not an
+    index_add (atomics on CUDA, so run-to-run differences)."""
+    B, G = t.shape
+    return t[:, :, None].expand(B, G, C // G).reshape(B, C)
 
 
 def gn_mean_scale(s: torch.Tensor, q: torch.Tensor, gamma: torch.Tensor,
@@ -101,19 +177,11 @@ def gn_mean_scale(s: torch.Tensor, q: torch.Tensor, gamma: torch.Tensor,
     The group variance ``E[x²] − E[x]²`` is clamped at 0: for a
     near-constant map with a large mean the one-pass form cancels to a
     small negative number in fp32, and rsqrt of it would be NaN."""
-    B, C = s.shape
-    cg = C // groups
-    g_mean = s.view(B, groups, cg).sum(-1) / n_per_group
-    g_var = (q.view(B, groups, cg).sum(-1) / n_per_group
-             - g_mean * g_mean).clamp_min(0)
-
-    def per_channel(t: torch.Tensor) -> torch.Tensor:
-        # a broadcast, not repeat_interleave: its backward is then a sum,
-        # not an index_add (atomics on CUDA, so run-to-run differences)
-        return t[:, :, None].expand(B, groups, cg).reshape(B, C)
-
-    return per_channel(g_mean), \
-        per_channel(1.0 / torch.sqrt(g_var + eps)) * gamma.float()
+    C = s.shape[1]
+    g_mean, g_var = _group_moments(s, q, n_per_group, groups)
+    return _per_channel(g_mean, C), \
+        _per_channel(1.0 / torch.sqrt(g_var.clamp_min(0) + eps), C) \
+        * gamma.float()
 
 
 def gn_swish_apply_reference(x: torch.Tensor, s: torch.Tensor,
@@ -140,6 +208,43 @@ def gn_swish_reference(x: torch.Tensor, gamma: torch.Tensor,
     s, q = gn_stats_reference(x)
     return gn_swish_apply_reference(x, s, q, gamma, beta, groups, eps,
                                     x.shape[2] * x.shape[3])
+
+
+def gn_swish_backward_reference(x: torch.Tensor, gamma: torch.Tensor,
+                                beta: torch.Tensor, gy: torch.Tensor,
+                                groups: int, eps: float = 1e-5
+                                ) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """``(dx, dγ, dβ)`` of ``gn_swish_reference`` given ``gy`` = dL/dy, in
+    closed form, fp32 (dx in ``x.dtype``), with ``gn_mean_scale``'s
+    statistics.  With x̂ = (x − μ)·r, z = x̂·γ + β:
+    dz = gy·σ(z)·(1 + z·(1 − σ(z))); dβ = Σ dz, dγ = Σ dz·x̂ over (b, h, w);
+    dx = r·(dz·γ − mean_g(dz·γ) − x̂·mean_g(dz·γ·x̂)), the group means
+    formed from the per-(b, c) sums of dz and dz·x̂.  Where the clamp holds a
+    group's variance at 0 the last term drops out, as in autograd of the
+    clamp.  The backward kernels' plain twin."""
+    B, C, H, W = x.shape
+    n = float(H * W * (C // groups))
+    s, q = gn_stats_reference(x)
+    g_mean, g_var = _group_moments(s, q, n, groups)
+    r = _per_channel(1.0 / torch.sqrt(g_var.clamp_min(0) + eps), C)
+    keep = _per_channel((g_var >= 0).float(), C)
+    xh = (x.float() - _per_channel(g_mean, C)[:, :, None, None]) \
+        * r[:, :, None, None]
+    gam = gamma.float()[None, :, None, None]
+    z = xh * gam + beta.float()[None, :, None, None]
+    sg = torch.sigmoid(z)
+    dz = gy.float() * sg * (1 + z * (1 - sg))
+    P, Q = dz.sum((2, 3)), (dz * xh).sum((2, 3))
+
+    def group_mean(t: torch.Tensor) -> torch.Tensor:
+        return _per_channel(
+            (t * gamma.float()).view(B, groups, C // groups).sum(-1) / n, C)
+
+    m1, m2 = group_mean(P), group_mean(Q) * keep
+    dx = r[:, :, None, None] * (dz * gam - m1[:, :, None, None]
+                                - xh * m2[:, :, None, None])
+    return dx.to(x.dtype), Q.sum(0), P.sum(0)
 
 
 def _check_input(x: torch.Tensor, name: str) -> int:
@@ -175,19 +280,28 @@ def gn_stats(x: torch.Tensor, channels_last: bool = False
                  _NHWC_ROWS_PER_BLOCK, is_bf16, stream), "gn_stats")
         gn_stats.launches += 1
         return ps.sum(1), pq.sum(1)
+    s, q = _launch_stats(x, "gn_stats")
+    gn_stats.launches += 1
+    return s, q
+
+
+gn_stats.launches = 0
+
+
+def _launch_stats(x: torch.Tensor, what: str
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The NCHW stats kernel on a checked ``x``, without counting a
+    launch."""
     B, C, H, W = x.shape
     s = torch.empty(B, C, device=x.device, dtype=torch.float32)
     q = torch.empty_like(s)
     fn = function("groupnorm_swish", "sr3d_gn_stats",
                   [_P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                    _P])
-    check(fn(x.data_ptr(), s.data_ptr(), q.data_ptr(), B * C, H * W, is_bf16,
-             stream), "gn_stats")
-    gn_stats.launches += 1
+    check(fn(x.data_ptr(), s.data_ptr(), q.data_ptr(), B * C, H * W,
+             _DTYPES[x.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream), what)
     return s, q
-
-
-gn_stats.launches = 0
 
 
 def _launch_gn_swish(x: torch.Tensor, gamma: torch.Tensor,
@@ -255,9 +369,80 @@ def _gn_swish_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y
 
 
+def gn_swish_backward(x: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, gy: torch.Tensor, groups: int,
+                      eps: float = 1e-5,
+                      need: tuple[bool, bool, bool] = (True, True, True)
+                      ) -> tuple[torch.Tensor | None, ...]:
+    """``(dx, dγ, dβ)`` of ``gn_swish`` at ``x`` given ``gy`` = dL/dy (x's
+    shape and dtype; a view is made contiguous); each None where ``need``
+    says it is not wanted.  On CUDA: the kernels ``gn_bwd_plan`` picks (one
+    launch counted per call); on the CPU: the closed form."""
+    if x.device.type == "cpu":
+        got = gn_swish_backward_reference(x, gamma, beta, gy, groups, eps)
+        return tuple(t if n else None for t, n in zip(got, need))
+    _check_gn(x, gamma, beta, groups, "gn_swish_backward")
+    if (gy.shape != x.shape or gy.dtype != x.dtype
+            or gy.device != x.device):
+        raise ValueError(f"gn_swish_backward: gy must match x "
+                         f"({tuple(x.shape)}, {x.dtype}, {x.device}), got "
+                         f"({tuple(gy.shape)}, {gy.dtype}, {gy.device})")
+    gy = gy.contiguous()
+    # the one-pass kernel's bulk copies take 16-byte aligned addresses; a
+    # view may start anywhere
+    x, gy = (t.clone() if t.data_ptr() % 16 else t for t in (x, gy))
+    B, C, H, W = x.shape
+    dev = x.device
+    plan = gn_bwd_plan(B, C, groups, H * W, x.dtype,
+                       torch.cuda.get_device_properties(
+                           dev).multi_processor_count)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    is_bf16 = _DTYPES[x.dtype]
+    dx = torch.empty_like(x) if need[0] else None
+    want_p = plan.path == "multipass" or need[1] or need[2]
+    pdz = torch.empty(B, C, device=dev, dtype=torch.float32) \
+        if want_p else None
+    pdzx = torch.empty_like(pdz) if want_p else None
+    if plan.path == "onepass":
+        fn = function("groupnorm_swish", "sr3d_gn_swish_bwd_onepass",
+                      [_P] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                      + [ctypes.c_int] * 3 + [_P])
+        check(fn(x.data_ptr(), gy.data_ptr(), gamma.data_ptr(),
+                 beta.data_ptr(), *(None if t is None else t.data_ptr()
+                                    for t in (dx, pdz, pdzx)),
+                 B, C, groups, H * W, eps, plan.cluster, plan.threads,
+                 is_bf16, stream), "gn_swish_backward")
+    else:
+        s, q = _launch_stats(x, "gn_swish_backward")
+        fn = function("groupnorm_swish", "sr3d_gn_swish_bwd_reduce",
+                      [_P] * 8 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int64, ctypes.c_float,
+                                  ctypes.c_int, _P])
+        check(fn(x.data_ptr(), gy.data_ptr(), s.data_ptr(), q.data_ptr(),
+                 gamma.data_ptr(), beta.data_ptr(), pdz.data_ptr(),
+                 pdzx.data_ptr(), B, C, groups, H * W, eps, is_bf16, stream),
+              "gn_swish_backward")
+        if need[0]:
+            fn = function("groupnorm_swish", "sr3d_gn_swish_bwd_dx",
+                          [_P] * 9 + [ctypes.c_int64, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int64,
+                                      ctypes.c_float, ctypes.c_int, _P])
+            check(fn(x.data_ptr(), gy.data_ptr(), s.data_ptr(), q.data_ptr(),
+                     gamma.data_ptr(), beta.data_ptr(), pdz.data_ptr(),
+                     pdzx.data_ptr(), dx.data_ptr(), B, C, groups, H * W,
+                     eps, is_bf16, stream), "gn_swish_backward")
+    gn_swish_backward.launches += 1
+    # dγ, dβ: the per-(b, c) sums added over b in a fixed order
+    return (dx, pdzx.sum(0) if need[1] else None,
+            pdz.sum(0) if need[2] else None)
+
+
+gn_swish_backward.launches = 0
+
+
 class _GnSwish(torch.autograd.Function):
-    """The CUDA kernels forward; backward, autograd of
-    ``gn_swish_reference`` recomputed from the saved ``x``."""
+    """The CUDA kernels forward (``gn_plan``) and backward
+    (``gn_swish_backward``), from the saved ``x``."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, groups, eps):
@@ -268,16 +453,11 @@ class _GnSwish(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, gamma, beta = ctx.saved_tensors
-        need = ctx.needs_input_grad[:3]
         # a profiler range, so that profile_train can attribute its time
-        with torch.profiler.record_function("gn_swish.backward"), \
-                torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip((x, gamma, beta), need)]
-            y = gn_swish_reference(*ins, ctx.groups, ctx.eps)
-            wanted = [t for t, n in zip(ins, need) if n]
-            got = iter(torch.autograd.grad(y, wanted, gy))
-        return (*(next(got) if n else None for n in need), None, None)
+        with torch.profiler.record_function("gn_swish.backward"):
+            got = gn_swish_backward(x, gamma, beta, gy, ctx.groups, ctx.eps,
+                                    ctx.needs_input_grad[:3])
+        return (*got, None, None)
 
 
 def gn_swish(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

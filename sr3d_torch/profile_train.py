@@ -1,6 +1,6 @@
 """Where a model3 train step's time goes on the GPU.
 
-    python -m sr3d_torch.profile_train
+    python -m sr3d_torch.profile_train [--steps]
 
 Builds the model3 joint step at the full width of
 ``configs/sr_sr3_VGGF2_16_128_model3.yml`` (bf16, random weights from seed
@@ -15,9 +15,20 @@ AdamW, EMA), takes one step to warm up, then prints:
   mode, mapping, FLAME, the vertex loss) on the hand-off's blob;
 * a ``torch.profiler`` trace of one whole step: device time by kernel
   group, the device's busy share of the step's wall time, and the share of
-  the step in GN+Swish's backward (autograd of its plain version, profiler
-  range ``gn_swish.backward``) and in attention's backward (range
+  the step in GN+Swish's backward (the ``gn_swish_backward`` kernels,
+  profiler range ``gn_swish.backward``) and in attention's backward (range
   ``spatial_attention.backward``), as device time and as host time.
+
+``--steps`` instead times the three training steps whose time the GN+Swish
+backward shares, at the flagship's full width in bf16: the SR-only step
+(``SRModel``, B = 2, remat), the model2 joint step (the Trainer's bare
+step: N = 4, DDIM-25 hand-off) and the model3 flow-through step (DDIM-25);
+each warmed up twice, the median of three synchronised steps, then one
+under ``torch.profiler`` for the ``gn_swish.backward`` range's calls, host
+and device time and the device's busy share; a JSON line last.  It uses
+only modules that every slice of the port since the parallel layer has, so
+the same file run inside an older checkout times that checkout's
+backward.
 
 Needs a GPU.
 """
@@ -25,9 +36,14 @@ Needs a GPU.
 from __future__ import annotations
 
 import functools
+import json
+import statistics
+import subprocess
+import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -153,5 +169,125 @@ def main() -> None:
               f"({100 * cpu_us / 1e6 / t_prof:.1f}% of the profiled step)")
 
 
+def _profiled(fn) -> dict:
+    """One ``fn()`` under ``torch.profiler``: the ``gn_swish.backward``
+    range's calls, host and device ms, their shares, and the device's busy
+    share of the profiled wall."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = _timed(fn)
+    events = prof.key_averages()
+    kernel_us = sum(_device_us(e) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.key not in RANGES)
+    hits = [e for e in events if e.key == "gn_swish.backward"
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    out = {"profiled_s": wall, "busy_pct": 100 * kernel_us / 1e6 / wall,
+           "gn_bwd_calls": 0, "gn_bwd_host_ms": 0.0,
+           "gn_bwd_host_pct": 0.0, "gn_bwd_device_ms": 0.0,
+           "gn_bwd_device_pct": 0.0}
+    if hits:
+        e = hits[0]
+        dev_us = float(getattr(e, "device_time_total", None)
+                       or e.cuda_time_total)
+        out.update(gn_bwd_calls=e.count,
+                   gn_bwd_host_ms=e.cpu_time_total / 1e3,
+                   gn_bwd_host_pct=100 * e.cpu_time_total / 1e6 / wall,
+                   gn_bwd_device_ms=dev_us / 1e3,
+                   gn_bwd_device_pct=100 * dev_us / max(kernel_us, 1e-9))
+    return out
+
+
+def steps() -> dict:
+    """The SR-only, model2 and model3 steps' times and GN+Swish backward
+    shares (see the module docstring); prints a line each and returns
+    them."""
+    from .config import get_cfg_defaults, update_cfg
+    from .data.synthetic import synthetic_face_batch
+    from .kernels import launch_counts, reset_launch_counts
+    from .models.flame import synthetic_flame
+    from .ops.image import degrade_pair
+    from .train.joint import build_joint, init_train_state, make_train_step
+    from .train.sr_only import SRModel
+
+    dev = torch.device("cuda")
+    flame = synthetic_flame(n_vertices=5023, n_shape=300, n_exp=100,
+                            n_faces=9976, seed=0, device=dev)
+
+    def config(name: str):
+        cfg = update_cfg(get_cfg_defaults(), str(ROOT / "configs" / name))
+        cfg.tpu.compute_dtype = "bfloat16"
+        cfg.sr.model.diffusion.train_sampler = "ddim"
+        cfg.sr.model.diffusion.train_ddim_steps = 25
+        return cfg
+
+    def measure(name: str, fn) -> dict:
+        for _ in range(2):
+            _timed(fn)
+        walls = [_timed(fn)[0] for _ in range(3)]
+        reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        bwd = launch_counts().get("gn_swish_backward", 0)
+        r = {"step": name, "median_s": statistics.median(walls),
+             "steps_s": walls, "gn_swish_backward_launches": bwd,
+             **_profiled(fn)}
+        print(f"{name}: median {r['median_s']:.3f} s of "
+              f"{', '.join(f'{w:.3f}' for w in walls)}; under the profiler "
+              f"{r['profiled_s']:.3f} s, device busy {r['busy_pct']:.1f}%; "
+              f"gn_swish.backward {r['gn_bwd_calls']} calls, host "
+              f"{r['gn_bwd_host_ms']:.1f} ms ({r['gn_bwd_host_pct']:.1f}%), "
+              f"device {r['gn_bwd_device_ms']:.2f} ms "
+              f"({r['gn_bwd_device_pct']:.1f}% of kernel time); "
+              f"gn_swish_backward launches {bwd}")
+        return r
+
+    out = []
+    cfg = config("sr_sr3_VGGF2_16_128_model2.yml")
+    hi = int(cfg.sr.datasets.train.r_resolution)
+    m = SRModel(cfg, device=dev, init_seed=0)
+    st = m.init_state()
+    sr_step = m.make_train_step()
+    rng = np.random.RandomState(5)
+    b = {k: torch.from_numpy(rng.uniform(-1, 1, (2, hi, hi, 3))
+                             .astype(np.float32)).to(dev)
+         for k in ("HR", "SR")}
+    g = torch.Generator(device=dev).manual_seed(0)
+    out.append(measure("SR-only step (B = 2)",
+                       lambda: sr_step(st, b, generator=g)))
+    del m, st, sr_step
+    for name, label in (("sr_sr3_VGGF2_16_128_model2.yml",
+                         "model2 joint step (N = 4, DDIM-25 hand-off)"),
+                        ("sr_sr3_VGGF2_16_128_model3.yml",
+                         "model3 flow-through step (N = 4, DDIM-25)")):
+        cfg = config(name)
+        n = int(cfg.mica.datasets.K) * int(cfg.mica.datasets.batch_size)
+        lo = int(cfg.sr.datasets.train.l_resolution)
+        hr = torch.from_numpy(synthetic_face_batch(n, hi, seed=0))
+        gen = torch.Generator().manual_seed(0)
+        batch = {"HR": hr, "SR": degrade_pair(hr, lo, hi)[1],
+                 "flame_shape": torch.randn(
+                     n, int(cfg.mica.model.n_shape), generator=gen) * 0.3}
+        mods = build_joint(cfg, flame=flame, init_seed=0, device=dev)
+        state = init_train_state(mods, cfg)
+        step = make_train_step(cfg.sr.train.ema_scheduler)
+        g = torch.Generator(device=dev).manual_seed(0)
+        out.append(measure(label, lambda: step(mods, state, batch,
+                                               generator=g)))
+        del mods, state, step
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"device": smi, "root": str(ROOT), "steps": out}))
+    return {"device": smi, "steps": out}
+
+
 if __name__ == "__main__":
-    main()
+    if "--steps" in sys.argv[1:]:
+        if not torch.cuda.is_available():
+            raise SystemExit("profile_train needs an NVIDIA GPU")
+        steps()
+    else:
+        main()

@@ -15,6 +15,7 @@ from sr3d_torch.kernels import (
     fused_gn_swish_conv3x3,
     gn_stats,
     gn_swish,
+    gn_swish_backward,
     int8_conv,
     launch_counts,
     reset_launch_counts,
@@ -27,8 +28,10 @@ from sr3d_torch.kernels.attention import (
 from sr3d_torch.kernels.conv3x3 import conv3x3_reference
 from sr3d_torch.kernels.fused_block import fused_block_reference
 from sr3d_torch.kernels.groupnorm_swish import (
+    gn_bwd_plan,
     gn_plan,
     gn_stats_reference,
+    gn_swish_backward_reference,
     gn_swish_reference,
 )
 from sr3d_torch.kernels.int8_conv import (
@@ -184,6 +187,7 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
     int8_conv(x, w8)
     # gn_swish: one launch, no gn_stats; the fused block's NHWC stats: one
     assert launch_counts() == {"gn_stats": 1, "gn_swish": 1,
+                               "gn_swish_backward": 0,
                                "spatial_attention": 1, "conv3x3": 1,
                                "fused_gn_swish_conv3x3": 1, "int8_conv": 1}
     with pytest.raises(TypeError):
@@ -345,6 +349,140 @@ def test_gn_swish_gradient_matches_plain(cuda, dtype):
         grads.append(torch.autograd.grad(y, ins, gy))
     for a, b in zip(*grads):
         torch.testing.assert_close(a.float(), b.float(), **TOL[dtype])
+
+
+# The GN+Swish backward kernels against their closed form (and autograd of
+# the plain version): dx as GN+Swish's outputs (TOL); dγ and dβ are fp32
+# sums of B·H·W terms, each term rounded differently (__expf, orders), so
+# their error grows with the sum: within 2e-5 of the largest entry.
+def _assert_gn_grads_close(got, ref, dtype):
+    torch.testing.assert_close(got[0].float(), ref[0].float(), **TOL[dtype])
+    for a, b in zip(got[1:], ref[1:]):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b.float(), atol=2e-5 * scale,
+                                   rtol=1e-5)
+
+
+GN_BWD_CASES = [
+    ((2, 64, 128, 128), 32, "onepass"),   # the widest level, clusters
+    ((4, 192, 64, 64), 32, "onepass"),
+    ((2, 1024, 8, 8), 32, "onepass"),     # the deepest level, one CTA
+    ((2, 96, 16, 16), 32, "onepass"),     # 3 channels a group
+    ((1, 32, 8, 8), 8, "onepass"),        # the CPU tests' tiny UNet
+    ((1, 16, 5, 7), 4, "multipass"),      # H*W not a multiple of a vector
+    ((2, 1024, 1, 1), 32, "multipass"),   # H*W = 1 (the small configs)
+    ((1, 256, 8, 8), 2, "multipass"),     # 128 channels a group
+]
+
+
+def _gn_bwd_inputs(shape, dtype, device, seed=0):
+    x, gamma, beta = _gn_inputs(shape, dtype, device, seed)
+    g = torch.Generator(device="cpu").manual_seed(seed + 100)
+    return x, gamma, beta, torch.randn(shape, generator=g).to(dtype).to(
+        device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,path", GN_BWD_CASES)
+def test_gn_backward_kernel_matches_closed_form(cuda, shape, groups, path,
+                                                dtype):
+    B, C, H, W = shape
+    assert gn_bwd_plan(B, C, groups, H * W, dtype).path == path
+    x, gamma, beta, gy = _gn_bwd_inputs(shape, dtype, cuda, seed=4)
+    reset_launch_counts()
+    got = gn_swish_backward(x, gamma, beta, gy, groups)
+    torch.cuda.synchronize()
+    assert launch_counts()["gn_swish_backward"] == 1
+    assert launch_counts()["gn_stats"] == 0
+    ref = gn_swish_backward_reference(x, gamma, beta, gy, groups)
+    ins = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    auto = torch.autograd.grad(gn_swish_reference(*ins, groups), ins, gy)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    _assert_gn_grads_close(got, ref, dtype)
+    _assert_gn_grads_close(got, auto, dtype)
+
+
+def test_gn_backward_fp32_group_beyond_a_cluster_is_multipass(cuda):
+    shape = (1, 512, 128, 128)
+    assert gn_bwd_plan(1, 512, 32, 128 * 128, torch.float32).path == \
+        "multipass"
+    assert gn_bwd_plan(1, 512, 32, 128 * 128, torch.bfloat16).path == \
+        "onepass"
+    for dtype in (torch.float32, torch.bfloat16):
+        x, gamma, beta, gy = _gn_bwd_inputs(shape, dtype, cuda, seed=5)
+        got = gn_swish_backward(x, gamma, beta, gy, 32)
+        ref = gn_swish_backward_reference(x, gamma, beta, gy, 32)
+        _assert_gn_grads_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("shape,groups", [((8, 192, 128, 128), 32),
+                                          ((2, 64, 5, 10), 32)])
+def test_gn_backward_repeats_bit_for_bit(cuda, shape, groups):
+    """Both plan paths add their partials in a fixed order, without
+    atomics, and dγ, dβ sum the per-(b, c) partials over b in one."""
+    x, gamma, beta, gy = _gn_bwd_inputs(shape, torch.bfloat16, cuda)
+    first = gn_swish_backward(x, gamma, beta, gy, groups)
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(
+            gn_swish_backward(x, gamma, beta, gy, groups), first))
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 32, 32), (2, 64, 1, 1)])
+@pytest.mark.parametrize("need", [(True, False, False), (False, True, True),
+                                  (True, True, False), (False, False, True)])
+def test_gn_backward_honours_needs_input_grad(cuda, shape, need):
+    """Frozen γ and β (``finetune_norm``) or an x that needs no gradient
+    (the first block's input): autograd asks only for what is needed, and
+    the kernels give the same values as when all three are wanted."""
+    x, gamma, beta, gy = _gn_bwd_inputs(shape, torch.float32, cuda, seed=6)
+    full = gn_swish_backward(x, gamma, beta, gy, 32)
+    part = gn_swish_backward(x, gamma, beta, gy, 32, need=need)
+    for n, a, b in zip(need, part, full):
+        assert (a is None) != n
+        if n:
+            assert torch.equal(a, b)
+    ins = [t.clone().requires_grad_(n) for t, n in zip((x, gamma, beta),
+                                                       need)]
+    y = gn_swish(*ins, 32)
+    wanted = [t for t in ins if t.requires_grad]
+    got = torch.autograd.grad(y, wanted, gy)
+    for a, b in zip(got, [f for f, n in zip(full, need) if n]):
+        assert torch.equal(a, b)
+
+
+def test_gn_backward_near_constant_large_mean_is_finite(cuda):
+    """A near-constant bf16 map at a large magnitude (the clamped
+    variance) gives finite gradients on both paths."""
+    C, G = 64, 32
+    for hw in (32, 5):   # one pass; multi-pass
+        x = torch.full((1, C, hw, hw), 2208.0, device=cuda)
+        x[0, 0, 0, 0] = x[0, 33, 3, 1] = 2224.0
+        x = x.bfloat16()
+        gy = torch.randn(x.shape, device=cuda).bfloat16()
+        got = gn_swish_backward(x, torch.ones(C, device=cuda),
+                                torch.full((C,), 0.3, device=cuda), gy, G)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+
+
+def test_gn_backward_runs_no_plain_version(cuda, monkeypatch):
+    """With the plain versions made to raise, a backward through gn_swish
+    completes on the card: only the kernels run."""
+    import sr3d_torch.kernels.groupnorm_swish as gn
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(gn, "gn_swish_reference", boom)
+    monkeypatch.setattr(gn, "gn_swish_backward_reference", boom)
+    for shape in ((2, 64, 32, 32), (2, 64, 5, 5)):
+        x, gamma, beta, gy = _gn_bwd_inputs(shape, torch.bfloat16, cuda)
+        ins = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+        reset_launch_counts()
+        grads = torch.autograd.grad(gn_swish(*ins, 32), ins, gy)
+        torch.cuda.synchronize()
+        assert launch_counts()["gn_swish_backward"] == 1
+        assert all(bool(torch.isfinite(t).all()) for t in grads)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

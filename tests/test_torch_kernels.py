@@ -141,9 +141,10 @@ def test_attention_gradient_matches_pallas_vjp():
 
 
 def test_gn_swish_gradient_matches_jax():
-    """Autograd of the port's GN+Swish (what the CUDA wrapper's backward
-    recomputes) against ``jax.grad`` of the JAX reference, fp32: x, γ, β
-    within 1e-4 of each gradient's scale."""
+    """Autograd of the port's GN+Swish on the CPU (the plain version; the
+    CUDA kernels' closed form is held to JAX in
+    test_torch_gn_backward.py) against ``jax.grad`` of the JAX reference,
+    fp32: x, γ, β within 1e-4 of each gradient's scale."""
     rng = np.random.RandomState(6)
     x = (rng.randn(2, 8, 8, 32) * 2 + 0.5).astype(np.float32)
     gamma = (rng.rand(32) + 0.5).astype(np.float32)
