@@ -16,11 +16,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    calls) and the card's bound for the work; GN+Swish also at every other
    input of the main paths (a meta-device trace of the UNet at B = 8, 4,
    2, 1), bf16, checked and timed against the library call; each shape's plan
-   (GN: one pass over a cluster or stats + apply; attention: tensor cores
-   over a cluster or CUDA cores; conv: tensor or CUDA cores, split K),
-   bit-equal repeats of the cluster reductions, and the tensor-core
-   instructions in the built attention, conv and int8 conv libraries
-   (HGMMA, HMMA, IGMMA and IMMA); the int8 conv bit for bit at every
+   (GN: one pass over a cluster or stats + apply; attention: all score rows
+   on chip (mma) or two passes over key tiles (long, simt), each over a
+   cluster; conv: tensor or CUDA cores, split K), bit-equal repeats of the
+   cluster reductions, and the tensor-core instructions in the built
+   attention (in both instantiations of its tiled kernel too), conv and
+   int8 conv libraries (HGMMA, HMMA, IGMMA and IMMA); one bf16 forward of
+   a flagship-width UNet with the module's default attention gate on 256²
+   inputs (five long-path launches at 1024 tokens) against the same
+   forward with the plain attention, both timed; the int8 conv bit for bit at every
    distinct int8 conv of the serving CLI's UNet forward (a meta-device
    trace, B = 8, bf16; its tensor-core path, the plan printed), in fp32 at
    both strides and scale kinds and at shapes of its first-version path,
@@ -734,6 +738,13 @@ def phase_kernels(dev) -> dict:
           f"in its SASS (cuobjdump -sass)")
     require(n_hgmma + n_hmma > 0,
             "the built attention library has no tensor-core instruction")
+    # the long path's bf16 products and the fp32 path's 3xTF32 run on the
+    # tensor cores: HMMA in each instantiation of the tiled kernel
+    hmma = sass_by_function("attention", " HMMA.")
+    for inst in ("attn_tiled_kernelI13__nv_bfloat16", "attn_tiled_kernelIf"):
+        n = sum(c for f, c in hmma.items() if inst in f)
+        print(f"  {inst}...: {n} HMMA instructions")
+        require(n > 0, f"{inst}: no tensor-core instruction in its SASS")
     for dtype in (torch.bfloat16, torch.float32):
         for shape in ATTN_SHAPES:
             B, HW, C = shape
@@ -781,28 +792,167 @@ def phase_kernels(dev) -> dict:
                 "path": plan.path, "cluster": plan.cluster, "ms": t_k,
                 "plain_ms": t_p, "library_ms": t_l, "bound_ms": b[0],
                 "bound_by": b[1]})
-            if top:
-                require(all(torch.equal(spatial_attention(q, k, v), out)
-                            for _ in range(3)),
-                        "attention does not repeat bit for bit")
-                print(f"      repeats bit for bit (3 runs, clusters of "
-                      f"{plan.cluster})")
+            # the clusters add their partials in rank order: every path
+            require(all(torch.equal(spatial_attention(q, k, v), out)
+                        for _ in range(3)),
+                    f"attention does not repeat bit for bit at {shape} "
+                    f"{dtype}")
+            print(f"      repeats bit for bit (3 runs, {plan.path}, "
+                  f"clusters of {plan.cluster})")
             del q, k, v, nxt, out, ref
     for name in rec:
         rec[name]["max_abs_err"] = err[name]
     return rec
 
 
+# a bf16 UNet forward whose attention runs the kernel against the same
+# forward with the plain attention: the kernels' outputs differ by bf16
+# ulps, which the rest of the network carries (max and mean |difference|
+# over the output's largest and mean |value|: 0.0084 / 0.0087 on an H100
+# at 700 W).  With random weights attention moves the output little: a
+# forward with the last 64 keys of every attention dropped lands only
+# 0.0105 / 0.0097 off, so the check that holds the kernels is each call's
+# against the plain version on its own inputs, at ATTN_TOL; the control is
+# printed
+ATTN_UNET_TOL = (0.05, 0.03)
+
+
+def phase_attention_unet(dev) -> dict:
+    """One bf16 forward of a UNet at the flagship widths (inner channel 64,
+    multipliers 1, 2, 4, 8, 8, two res blocks) with the module's default
+    gate (``image_size=128, attn_res=(16,)``) on 256² inputs at B = 2,
+    random weights from seed 0: attention at 32² (1024 tokens, C = 512) on
+    the long path, the mid block at 16² (256 tokens).  Held against the
+    same forward with ``spatial_attention_reference`` patched in, and each
+    attention call against the plain version on its own inputs; both
+    forwards timed (host clock after ``torch.cuda.synchronize``, median of
+    3).  No repo config has this gate over this input size."""
+    import sr3d_torch.models.sr3_unet as unet_mod
+    from sr3d_torch.kernels import launch_counts, reset_launch_counts
+    from sr3d_torch.kernels.attention import (
+        attn_plan,
+        spatial_attention_reference,
+    )
+
+    torch.manual_seed(0)
+    unet = unet_mod.SR3UNet(inner_channel=64, channel_mults=(1, 2, 4, 8, 8),
+                            res_blocks=2, attn_res=(16,), image_size=128,
+                            dtype=torch.bfloat16).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(2, 6, 256, 256, generator=g, device=dev)
+    t = torch.rand(2, 1, generator=g, device=dev)
+    kernel = unet_mod.spatial_attention
+    paths: list = []
+    errs: list = []   # each call's kernel output against the plain version
+
+    def counted(q, k, v, channels=None):
+        paths.append((tuple(q.shape),
+                      attn_plan(q.shape[1], q.shape[2], q.dtype).path))
+        out = kernel(q, k, v, channels)
+        if len(errs) < 6:
+            ref = spatial_attention_reference(
+                q, k, v, 1.0 / math.sqrt(channels or q.shape[-1]))
+            errs.append(float((out.float() - ref.float()).abs().max()))
+            require(torch.allclose(out.float(), ref.float(),
+                                   atol=ATTN_TOL[q.dtype][0],
+                                   rtol=ATTN_TOL[q.dtype][1]),
+                    f"attention in the 256² forward at {tuple(q.shape)}: "
+                    f"{errs[-1]}")
+        return out
+
+    def plain(q, k, v, channels=None):
+        return spatial_attention_reference(
+            q, k, v, 1.0 / math.sqrt(channels or q.shape[-1]))
+
+    def dropped(q, k, v, channels=None):  # the control: a key tile lost
+        return plain(q, k[:, :-64], v[:, :-64], channels)
+
+    def forward(fn):
+        unet_mod.spatial_attention = fn
+        try:
+            with torch.no_grad():
+                out = unet(x, t)
+        finally:
+            unet_mod.spatial_attention = kernel
+        torch.cuda.synchronize()
+        return out
+
+    reset_launch_counts()
+    out = forward(counted)
+    launches = launch_counts()["spatial_attention"]
+    first = list(paths)
+    n_long = sum(p == "long" for _, p in first)
+    require(n_long == 5 and launches == len(first) == 6,
+            f"the 256² forward: {launches} attention launches, paths "
+            f"{first} (want 5 long at 1024 tokens and the mid block)")
+    ref = forward(plain)
+
+    def gap(a):
+        d = (a.float() - ref.float()).abs()
+        return (float(d.max() / ref.float().abs().max()),
+                float(d.mean() / ref.float().abs().mean()))
+
+    rel, ctrl = gap(out), gap(forward(dropped))
+    require(bool(torch.isfinite(out).all()) and out.shape == x[:, :3].shape
+            and rel[0] < ATTN_UNET_TOL[0] and rel[1] < ATTN_UNET_TOL[1],
+            f"the 256² forward with the kernels disagrees with the plain "
+            f"attention's: max / mean |difference| {rel} (limits "
+            f"{ATTN_UNET_TOL})")
+    long_shapes = sorted({s for s, p in first if p == "long"})
+    mid = [p for s, p in first if p != "long"]
+
+    def timed(fn):
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            forward(fn)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ms)[1]
+
+    t_k, t_p = timed(counted), timed(plain)
+    print(f"  UNet 256² bf16 B = 2, default gate (image_size 128, attn_res "
+          f"16): {launches} attention launches ({n_long} long at "
+          f"{long_shapes}, the mid block {mid}), each within ATTN_TOL of "
+          f"the plain version on its own inputs (max err {max(errs):.3g}); "
+          f"the whole forward against the plain "
+          f"attention max / mean |difference| {rel[0]:.3g} / {rel[1]:.3g} "
+          f"of the output's max / mean |value| (limits {ATTN_UNET_TOL}; "
+          f"the control with 64 keys dropped {ctrl[0]:.3g} / "
+          f"{ctrl[1]:.3g}); forward {t_k:.1f} ms, with the plain attention "
+          f"{t_p:.1f} ms")
+    del unet, x, t, out, ref
+    return {"long_path_unet": {
+        "shape": [2, 6, 256, 256], "dtype": "bfloat16",
+        "attention_launches": launches, "long_launches": n_long,
+        "max_rel_diff": rel[0], "mean_rel_diff": rel[1],
+        "control_rel_diff": list(ctrl), "max_abs_err": max(errs),
+        "forward_ms": t_k, "plain_attention_forward_ms": t_p}}
+
+
 def sass_count(stem: str, op: str) -> int:
     """Instructions whose text holds ``op`` in the SASS of the library
     built from ``csrc/<stem>.cu``."""
+    return sum(sass_by_function(stem, op).values())
+
+
+def sass_by_function(stem: str, op: str) -> dict[str, int]:
+    """Instructions whose text holds ``op`` in each kernel function of the
+    SASS of the library built from ``csrc/<stem>.cu``, by mangled name."""
     from sr3d_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run(
         [tool, "-sass", str(_build._target(_build.CSRC / f"{stem}.cu"))],
         capture_output=True, text=True, timeout=120, check=True).stdout
-    return sum(op in ln.split(";")[0] for ln in sass.splitlines())
+    counts: dict[str, int] = {}
+    name = None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and op in ln.split(";")[0]:
+            counts[name] += 1
+    return counts
 
 
 def tensor_core_instructions(stem: str) -> tuple[int, int]:
@@ -3932,6 +4082,7 @@ def main() -> int:
     # 3. kernels against their plain versions; the slices on a tiny input
     print("[3] kernels vs plain versions (device times, CUDA graphs)")
     rec = phase_kernels(dev)
+    rec["spatial_attention"].update(phase_attention_unet(dev))
     rec.update(phase_gn_backward(dev))
     rec.update(phase_conv_kernels(dev))
     print("    conv3x3 and fused_gn_swish_conv3x3 are on no model path (as "
@@ -4098,7 +4249,8 @@ def main() -> int:
             kernels[-1]["repo_config_shapes"] = len(config_shapes[name])
         for extra in ("main_path", "cudnn_bf16_ms", "cold_ms",
                       "cold_bound_ms", "convs_per_forward", "forward_ms",
-                      "forward_launches", "training_shapes", "plan_paths"):
+                      "forward_launches", "training_shapes", "plan_paths",
+                      "long_path_unet"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(f"chip_smoke: every phase passed in "

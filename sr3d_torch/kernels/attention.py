@@ -10,11 +10,14 @@ backward (``spatial_attention_backward``: recomputed fp32 scores, products
 through ``torch.einsum``; the JAX package computes this backward in XLA,
 outside any Pallas kernel).
 
-``attn_plan`` names the kernel for a shape (``mma``: bf16 on the tensor
-cores over a thread-block cluster; ``simt``: CUDA cores, for fp32 and bf16
-with C not a multiple of 8; ``long``: CUDA cores in two passes over key
-tiles, for more than ``MAX_TOKENS`` tokens in either dtype); it is pure
-Python, so the CPU tests hold its choices.
+``attn_plan`` names the kernel for a shape: ``mma`` (``attn_mma_kernel``:
+bf16, C a multiple of 8, at most ``MAX_TOKENS`` tokens, all score rows on
+chip, tensor cores over a thread-block cluster), ``long`` (more than
+``MAX_TOKENS`` tokens) and ``simt`` (fp32 at most ``MAX_TOKENS`` tokens,
+and bf16 with C not a multiple of 8): both ``attn_tiled_kernel``, two
+passes over 64-key tiles with the channel slices over a cluster, bf16 on
+the tensor cores and fp32 in 3xTF32.  It is pure Python, so the CPU tests
+hold its choices.
 
 The wrapper runs the plain version for a CPU tensor and a kernel for a CUDA
 tensor, never one in place of the other, and counts kernel launches in
@@ -33,7 +36,7 @@ from ._build import check, function
 
 _P = ctypes.c_void_p
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_TOKENS = 256  # score rows the mma and simt kernels keep on chip
+MAX_TOKENS = 256  # score rows attn_mma_kernel keeps on chip
 SLICE = 64  # channels of one CTA's slice
 MAX_CLUSTER = 8  # the portable cluster size
 
@@ -41,27 +44,31 @@ MAX_CLUSTER = 8  # the portable cluster size
 @dataclass(frozen=True)
 class AttnPlan:
     """How one attention call runs on the card.  ``path`` is ``"mma"``
-    (``attn_mma_kernel``: a cluster of ``cluster`` CTAs, one per 64-channel
-    slice, for each (64-query tile, image) pair), ``"simt"``
-    (``attn_fwd_kernel``) or ``"long"`` (``attn_long_kernel``); ``why`` says
-    why."""
+    (``attn_mma_kernel``), ``"long"`` or ``"simt"`` (both
+    ``attn_tiled_kernel``); every path runs a cluster of ``cluster`` CTAs,
+    one per 64-channel slice, for each (query tile, image) pair; ``why``
+    says why."""
 
     path: str
     why: str
-    cluster: int = 0
+    cluster: int
 
 
 def attn_plan(HW: int, C: int, dtype: torch.dtype) -> AttnPlan:
     """The kernel for q, k, v ``[B, HW, C]`` of ``dtype``."""
+    cluster = min(MAX_CLUSTER, -(-C // SLICE))
+    arith = ("bf16 on the tensor cores" if dtype == torch.bfloat16
+             else "fp32 in 3xTF32")
     if HW > MAX_TOKENS:
         return AttnPlan("long", f"{HW} tokens > {MAX_TOKENS}: two passes "
-                                f"over key tiles")
+                                f"over key tiles, {arith}", cluster)
     if dtype != torch.bfloat16:
-        return AttnPlan("simt", "fp32: tensor cores would mean TF32")
+        return AttnPlan("simt", "fp32: two passes over key tiles in 3xTF32 "
+                                "(TF32 alone keeps ~3 digits)", cluster)
     if C % 8:
-        return AttnPlan("simt", f"C = {C} is not a multiple of 8 "
-                                f"(16-byte rows)")
-    cluster = min(MAX_CLUSTER, -(-C // SLICE))
+        return AttnPlan("simt", f"C = {C} is not a multiple of 8 (no "
+                                f"16-byte rows): two passes over key tiles, "
+                                f"loads an element at a time", cluster)
     return AttnPlan("mma", f"bf16: {cluster} channel slices a cluster",
                     cluster)
 
@@ -111,24 +118,25 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = attn_plan(HW, Cq, q.dtype)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if plan.path == "long":
-        fn = function("attention", "sr3d_attention_long_fwd",
-                      [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_int, _P])
-        check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, HW, Cq, scale, _DTYPES[q.dtype], stream),
-              "spatial_attention")
-        spatial_attention.launches += 1
-        return out
     if plan.path == "mma":   # 16-byte loads; a view may start anywhere
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
-    fn = function("attention", "sr3d_attention_fwd",
-                  [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int, _P])
-    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, HW,
-             Cq, scale, _DTYPES[q.dtype], plan.cluster, stream),
-          "spatial_attention")
+        fn = function("attention", "sr3d_attention_mma_fwd",
+                      [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int, _P])
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    B, HW, Cq, scale, plan.cluster, stream)
+    else:   # 16-byte loads where rows and pointers allow them
+        vec = Cq * q.element_size() % 16 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+        fn = function("attention", "sr3d_attention_tiled_fwd",
+                      [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, _P])
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    B, HW, Cq, scale, _DTYPES[q.dtype], plan.cluster,
+                    int(vec), stream)
+    check(status, "spatial_attention")
     spatial_attention.launches += 1
     return out
 

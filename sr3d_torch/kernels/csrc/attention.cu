@@ -5,20 +5,24 @@
 // fp32 scores, max-subtracted softmax, the probabilities rounded to v's type
 // before P V (as _attn_kernel does), fp32 accumulation, out in q's type.
 // The scale is 1/sqrt(C) over the full channel count; the caller passes it.
-// The full score rows stay on chip (no online softmax), so P is rounded
-// exactly where the reference rounds it.
+// P is rounded only once normalised by its row's full sum (the score rows
+// stay on chip, or a first pass finds each row's max and sum), never as an
+// unnormalised online-softmax P: exactly where the reference rounds it.
 //
 // What bounds it on an H100: at the 16->128 mid block, [8, 64, 512] bf16,
 // it moves 2 MB (three reads and one write, ~0.6 us at 3.35 TB/s) and does
 // 67 MFLOP (~0.07 us at the bf16 tensor-core peak).  Both are tiny: what
-// sets the time is latency and how many SMs take part.  The head dim 512 is
-// above PyTorch's flash-attention cap, which is why the port writes its own.
+// sets the time is latency and how many SMs take part.  At 1024 tokens
+// ([8, 1024, 512], the default attn_res over 256^2 data) it does 17.2 GFLOP
+// (0.017 ms at the peak) on 33.5 MB (0.010 ms): the products bound it.  The
+// head dim 512 is above PyTorch's flash-attention cap, which is why the
+// port writes its own.
 //
-// Three kernels; the wrapper's plan (attn_plan in attention.py) picks one by
+// Two kernels; the wrapper's plan (attn_plan in attention.py) picks one by
 // dtype and shape, never by failure:
 //
-// attn_mma_kernel: bf16, C a multiple of 8, HW <= 256.  Tensor cores over a
-// thread-block cluster.
+// attn_mma_kernel (plan path mma): bf16, C a multiple of 8, HW <= 256.  All
+// the score rows of a 64-query tile on chip, tensor cores over a cluster.
 //   * Grid: one CTA per (64-channel slice, 64-query tile, image).  The
 //     S = min(8, ceil(C/64)) CTAs of one (query tile, image) form a
 //     cluster; rank r owns slices r, r + S, ...  [8, 64, 512]: 64 CTAs in
@@ -50,21 +54,47 @@
 //     HW get no probability (P = 0, V rows zero); channels past C are zero
 //     in Q, K and V and never stored.
 //
-// attn_fwd_kernel<T>: fp32 (tensor cores would mean TF32) and bf16 with C
-// not a multiple of 8: the first port, CUDA-core fp32 FMAs.  One block per
-// (16 query rows, image), the 16 x HW score rows in shared memory.
-//
-// attn_long_kernel<T>: HW > 256 (the score rows no longer fit), fp32 and
-// bf16, any C: CUDA-core fp32 FMAs, two passes over 32-key tiles.  One block
-// per (16 query rows, 256-channel slice of the output, image).  Pass 1
-// computes each tile's scores (all C channels) and keeps the running row max
-// m and sum l = sum exp(s - m), rescaled when m grows.  Pass 2 computes the
-// scores again, forms P = exp(s - m) / l, rounds it to T as the reference
-// rounds the normalised P, and adds P V_slice into 16 fp32 accumulators a
-// thread.  Nothing but q, k, v and out touches device memory.  Each slice's
-// block computes the scores again, and every key tile is read twice: right
-// and simple first (the config defaults reach it at 1024 tokens, C = 512,
-// when the data is twice image_size; no repo config does).
+// attn_tiled_kernel<T> (plan paths long and simt): any HW, any C; bf16 on
+// the tensor cores (mma.sync m16n8k16), fp32 in 3xTF32 (each operand split
+// into a TF32 hi and lo, a_lo b_hi + a_hi b_lo + a_hi b_hi by mma.sync
+// m16n8k8: about fp32's accuracy, where TF32 alone keeps ~3 digits).  The
+// score rows no longer fit, so it makes two passes over 64-key tiles, with
+// attn_mma_kernel's split of the channels:
+//   * Grid: one CTA per (cluster rank, 64-query tile, image), clusters of
+//     S = min(8, ceil(C/64)); rank r owns 64-channel slices r, r + S, ...
+//     and the tile's rows [ceil(64 r / S), ceil(64 (r + 1) / S)).  Every
+//     CTA reads its slice of each K and V tile once a pass, so a cluster
+//     reads a tile once, and L2 serves K twice and V once per query tile.
+//   * One stream of key tiles: T of pass 1, then T per output round (one
+//     round unless C > 512: then rank r's slices r, r + S, ... are rounds,
+//     and pass 2 recomputes the scores for each).  Iteration u: (a) the
+//     partial scores of tile u over the rank's slices (computed in
+//     iteration u - 1) go to the ranks owning their rows; (b) each rank
+//     adds the S partials of tile u - 1 for its rows in rank order (no
+//     atomics: repeats are bit-equal), scales, and in pass 1 updates the
+//     running max m and sum l = sum exp(s - m) (rescaled when m grows), in
+//     pass 2 forms P = exp(s - m) / l, rounds it to T (after the division,
+//     where the reference rounds it) and sends it to every rank; (c) each
+//     rank adds P V_s of tile u - 2 for its slice (a warp: 16 rows x 32
+//     channels).  Then it computes tile u + 1's partial scores.
+//   * Exchange: the partials and P travel by st.async into the receiver's
+//     shared memory, each store completing its bytes on the receiver's
+//     mbarrier, which the receiver waits on; one relaxed cluster barrier an
+//     iteration keeps a sender from overwriting a buffer still being read
+//     (two buffers of partials and of P; K and V in rings of three tiles,
+//     cp.async issued two iterations ahead).
+//   * What bounds it: the exchange, not the products.  Each CTA sends its
+//     64 x 64 fp32 partials (16 KB) and its rows of P every tile through
+//     the cluster network, which moves about 16 bytes a cycle an SM; in
+//     bf16 the softmax step (its wait for the partials, its P sends) and
+//     the cluster barrier's wait take ~60% of an iteration, the products
+//     ~25% (python -m sr3d_torch.profile_attention --phases).  64 x 64
+//     tiles were the fastest measured (--tiles) and send P 4 or 8 bytes a
+//     store.
+//   * Loads: 16 bytes a thread with cp.async where rows are multiples of
+//     16 bytes; otherwise (C % 8 != 0 in bf16) one element a thread.
+//   * Ragged tiles as in attn_mma_kernel; keys past HW get s = -inf.
+//   * ~118 KB (bf16) or ~195 KB (fp32) of shared memory: one CTA an SM.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -330,21 +360,31 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// ---- the CUDA-core kernel (fp32; bf16 with C % 8 != 0) ------------------
-constexpr int kThreads = 256;
-constexpr int TQ = 16;  // query rows per block
-constexpr int TK = 64;  // keys per tile
-constexpr int CK = 32;  // channel chunk of Q K^T
-constexpr int CV = 64;  // channel chunk of P V
+// ---- the tiled cluster kernel (plan paths long and simt) ------------------
+constexpr int kTiledThreads = 256;  // 8 warps
+constexpr int kRing = 3;            // K and V tiles in flight
 
 template <typename T>
-__device__ __forceinline__ float to_f(T v);
+struct Tiled;
 template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
+struct Tiled<__nv_bfloat16> {   // mma.sync m16n8k16 on bf16
+  static constexpr int QT = 64;   // query rows: 4 warps x 16, x 2 halves
+  static constexpr int KT = 64;   // keys a tile
+  static constexpr int LDQ = 72, LDK = 72, LDV = 72;  // 144-byte rows (ldmatrix)
+  static constexpr int LDP = KT + 8;  // rows of 16 bytes x an odd number
+  static constexpr int KTR = KT + 8;  // fp32 row stride of received partials
+  static constexpr int kMinBlocks = 1;  // ~118 KB of shared memory
+};
 template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+struct Tiled<float> {           // 3xTF32: mma.sync m16n8k8 on hi/lo halves
+  static constexpr int QT = 64;   // 4 warps x 16 rows, x 2 halves
+  static constexpr int KT = 64;
+  static constexpr int LDQ = 68, LDK = 68;  // (row g, col t4) loads: banks 4g + t4
+  static constexpr int LDV = 72;            // (row t4, col g) loads: banks 8t4 + g
+  static constexpr int LDP = KT + 4;
+  static constexpr int KTR = KT + 8;
+  static constexpr int kMinBlocks = 1;  // ~195 KB of shared memory
+};
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -355,310 +395,616 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+struct TiledLayout {
+  int q, k, v, p, r, m, l, bytes;  // byte offsets of the regions, total
+};
+
+__host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
+
+// shared memory of one CTA in a cluster of S: its Q slice, the K and V
+// rings, P for two tiles, the partial scores its rows receive for two tiles
+// (S sources x ceil(QT / S) rows), its rows' running max m and sum l
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out, int hw,
-                    int C, float scale) {
-  __shared__ float S[TQ][kMaxHW];
-  __shared__ float sQ[TQ][CK + 1];
-  __shared__ float sKV[TK * (CV + 1)];
+__host__ __device__ TiledLayout tiled_layout(int S) {
+  using P = Tiled<T>;
+  const int rpr = (P::QT + S - 1) / S;
+  TiledLayout L{};
+  int o = 0;
+  L.q = o, o += P::QT * P::LDQ * (int)sizeof(T);
+  L.k = o, o += kRing * P::KT * P::LDK * (int)sizeof(T);
+  L.v = o, o += kRing * P::KT * P::LDV * (int)sizeof(T);
+  L.p = o, o += 2 * P::QT * P::LDP * (int)sizeof(T);
+  L.r = o, o += 2 * S * rpr * P::KTR * 4;
+  L.m = o, o += align16(rpr * 4);
+  L.l = o, o += align16(rpr * 4);
+  L.bytes = o;
+  return L;
+}
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * TQ;
-  const int64_t base = (int64_t)blockIdx.y * hw * C;
-  q += base;
-  k += base;
-  v += base;
-  out += base;
-  const int rows = min(TQ, hw - q0);
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
 
-  // ---- scores S = Q K^T * scale -----------------------------------------
-  for (int k0 = 0; k0 < hw; k0 += TK) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int c0 = 0; c0 < C; c0 += CK) {
-      for (int i = tid; i < TQ * CK; i += kThreads) {
-        const int r = i / CK, c = i % CK;
-        sQ[r][c] = (r < rows && c0 + c < C)
-                       ? to_f<T>(q[(int64_t)(q0 + r) * C + c0 + c])
-                       : 0.f;
-      }
-      for (int i = tid; i < TK * CK; i += kThreads) {
-        const int j = i / CK, c = i % CK;
-        sKV[j * (CK + 1) + c] = (k0 + j < hw && c0 + c < C)
-                                    ? to_f<T>(k[(int64_t)(k0 + j) * C + c0 + c])
-                                    : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int idx = tid + e * kThreads;
-        const int r = idx / TK, kk = idx % TK;
-#pragma unroll 8
-        for (int c = 0; c < CK; ++c)
-          acc[e] += sQ[r][c] * sKV[kk * (CK + 1) + c];
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int idx = tid + e * kThreads;
-      const int r = idx / TK, kk = idx % TK;
-      if (k0 + kk < hw) S[r][k0 + kk] = acc[e] * scale;
-    }
-  }
-  __syncthreads();
+// A store into a cluster peer's shared memory (addr) that completes its
+// bytes of the transaction on the peer's mbarrier (mbar), both
+// shared::cluster addresses: the sender neither fences nor waits.
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t mbar, float a,
+                                         float b) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr),
+      "f"(a), "f"(b), "r"(mbar)
+      : "memory");
+}
 
-  // ---- row softmax, probabilities rounded to T --------------------------
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float m = -INFINITY;
-    for (int j = lane; j < hw; j += 32) m = fmaxf(m, S[r][j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < hw; j += 32) {
-      const float e = expf(S[r][j] - m);
-      S[r][j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < hw; j += 32)
-      S[r][j] = to_f<T>(from_f<T>(S[r][j] / sum));
-  }
-  __syncthreads();
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t mbar,
+                                         uint32_t a) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(a), "r"(mbar)
+      : "memory");
+}
 
-  // ---- out = P V --------------------------------------------------------
-  for (int c0 = 0; c0 < C; c0 += CV) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k0 = 0; k0 < hw; k0 += TK) {
-      for (int i = tid; i < TK * CV; i += kThreads) {
-        const int j = i / CV, c = i % CV;
-        sKV[j * CV + c] = (k0 + j < hw && c0 + c < C)
-                              ? to_f<T>(v[(int64_t)(k0 + j) * C + c0 + c])
-                              : 0.f;
-      }
-      __syncthreads();
-      const int jmax = min(TK, hw - k0);
+// a row's P for this lane's KPL keys, rounded to T, into a peer: 4 or 8
+// bytes a store (bf16 with one key a lane: the even lane stores the pair)
+__device__ __forceinline__ void push_p(uint32_t addr, uint32_t mbar,
+                                       const float (&p)[1], int lane) {
+  st_async(addr, mbar, __float_as_uint(p[0]));
+}
+
+__device__ __forceinline__ void push_p(uint32_t addr, uint32_t mbar,
+                                       const float (&p)[2], int lane) {
+  st_async(addr, mbar, p[0], p[1]);
+}
+
+__device__ __forceinline__ void push_p(uint32_t addr, uint32_t mbar,
+                                       const __nv_bfloat16 (&p)[1], int lane) {
+  const uint32_t mine = (uint32_t)__bfloat16_as_ushort(p[0]);
+  const uint32_t next = __shfl_down_sync(0xffffffffu, mine, 1);
+  if (!(lane & 1)) st_async(addr, mbar, mine | next << 16);
+}
+
+__device__ __forceinline__ void push_p(uint32_t addr, uint32_t mbar,
+                                       const __nv_bfloat16 (&p)[2], int lane) {
+  st_async(addr, mbar,
+           (uint32_t)__bfloat16_as_ushort(p[0]) |
+               (uint32_t)__bfloat16_as_ushort(p[1]) << 16);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+// this phase's one arrival, and the bytes it waits for
+__device__ __forceinline__ void mbar_arm(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spins until the phase of parity `parity` has completed; a wait that
+// never ends (a bug, not a slow store) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0, spins = 0;
+  do {
+    if (++spins == (1u << 30)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// an execution barrier of the cluster without release semantics (~0.1 us
+// against ~0.5 us with them on an H100): the data itself travels by
+// st.async and is awaited on mbarriers
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = hi + lo, both TF32 (round to nearest, ties away, as cvt.rna does)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  hi &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+  lo &= 0xffffe000u;
+}
+
+// d += a * b, m16n8k8, tf32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo, below
+// fp32's rounding, is dropped), small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4],
+                                           float b0, float b1) {
+  uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int idx = tid + e * kThreads;
-        const int r = idx / CV, c = idx % CV;
-        for (int j = 0; j < jmax; ++j)
-          acc[e] += S[r][k0 + j] * sKV[j * CV + c];
-      }
-      __syncthreads();
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// rows [row0, row0 + rows) x channels [c0, c0 + 64) of an [hw, C] matrix
+// into a [rows][ld] tile, zeros past hw and C: 16 bytes a thread by
+// cp.async where rows are 16-byte multiples (vec), else one element at a
+// time (C % 8 != 0 in bf16, C % 4 != 0 in fp32)
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
+                                          int row0, int rows, int hw, int C,
+                                          int c0, bool vec) {
+  if (vec) {
+    constexpr int EV = 16 / sizeof(T), NV = CS / EV;
+    for (int i = threadIdx.x; i < rows * NV; i += kTiledThreads) {
+      const int r = i / NV, c = (i % NV) * EV;
+      const bool ok = row0 + r < hw && c0 + c < C;
+      cp_async16(dst + r * ld + c,
+                 ok ? src + (int64_t)(row0 + r) * C + c0 + c : src, ok);
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int idx = tid + e * kThreads;
-      const int r = idx / CV, c = idx % CV;
-      if (r < rows && c0 + c < C)
-        out[(int64_t)(q0 + r) * C + c0 + c] = from_f<T>(acc[e]);
+  } else {
+    for (int i = threadIdx.x; i < rows * CS; i += kTiledThreads) {
+      const int r = i / CS, c = i % CS;
+      dst[r * ld + c] = row0 + r < hw && c0 + c < C
+                            ? src[(int64_t)(row0 + r) * C + c0 + c]
+                            : from_f<T>(0.f);
     }
   }
 }
 
-// ---- the long-sequence kernel (HW > kMaxHW) -------------------------------
-constexpr int LQ = 16;    // query rows per block
-constexpr int LK = 32;    // keys per tile: one a lane in the softmax passes
-constexpr int LCK = 32;   // channel chunk of Q K^T
-constexpr int LCV = 256;  // output channels per block: one a thread
-static_assert(LCV == kThreads && LQ * LK == 2 * kThreads &&
-                  LQ == 2 * (kThreads / 32),
-              "a thread owns one output channel and two scores; a warp "
-              "two rows");
-
-// scores of query rows [q0, q0 + LQ) against keys [k0, k0 + LK), all C
-// channels, scaled, -inf past hw, into sS; every thread calls it
-template <typename T>
-__device__ __forceinline__ void long_scores(
-    const T* __restrict__ q, const T* __restrict__ k, int hw, int C,
-    float scale, int q0, int k0, float (*sQ)[LCK + 1],
-    float (*sK)[LCK + 1], float (*sS)[LK + 1]) {
-  const int tid = threadIdx.x;
-  float acc[2] = {0.f, 0.f};
-  for (int c0 = 0; c0 < C; c0 += LCK) {
-    for (int i = tid; i < LQ * LCK; i += kThreads) {
-      const int r = i / LCK, c = i % LCK;
-      sQ[r][c] = (q0 + r < hw && c0 + c < C)
-                     ? to_f<T>(q[(int64_t)(q0 + r) * C + c0 + c])
-                     : 0.f;
-    }
-    for (int i = tid; i < LK * LCK; i += kThreads) {
-      const int j = i / LCK, c = i % LCK;
-      sK[j][c] = (k0 + j < hw && c0 + c < C)
-                     ? to_f<T>(k[(int64_t)(k0 + j) * C + c0 + c])
-                     : 0.f;
-    }
-    __syncthreads();
+// partial scores of the warp's 16 query rows x KW keys over one 64-channel
+// slice: sQ [QT][LDQ], sK [KT][LDK]
+template <int KW>
+__device__ __forceinline__ void tile_scores(float (&acc)[KW / 8][4],
+                                            const __nv_bfloat16* sQ,
+                                            const __nv_bfloat16* sK, int wr,
+                                            int kw0, int lane) {
+  using P = Tiled<__nv_bfloat16>;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int idx = tid + e * kThreads, r = idx / LK, j = idx % LK;
-#pragma unroll 8
-      for (int c = 0; c < LCK; ++c) acc[e] += sQ[r][c] * sK[j][c];
-    }
-    __syncthreads();
-  }
+  for (int ks = 0; ks < CS / 16; ++ks) {
+    uint32_t a[4];
+    ldmatrix_x4(a, sQ + (wr + (lane & 15)) * P::LDQ + ks * 16 +
+                       (lane >> 4) * 8);
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int idx = tid + e * kThreads, r = idx / LK, j = idx % LK;
-    sS[r][j] = k0 + j < hw ? acc[e] * scale : -INFINITY;
+    for (int nb = 0; nb < KW / 16; ++nb) {
+      uint32_t b[4];
+      ldmatrix_x4(b, sK + (kw0 + nb * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                              P::LDK +
+                         ks * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * nb], a, b[0], b[1]);
+      mma_bf16(acc[2 * nb + 1], a, b[2], b[3]);
+    }
   }
-  __syncthreads();
 }
 
+template <int KW>
+__device__ __forceinline__ void tile_scores(float (&acc)[KW / 8][4],
+                                            const float* sQ, const float* sK,
+                                            int wr, int kw0, int lane) {
+  using P = Tiled<float>;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < CS / 8; ++ks) {
+    const float* qa = sQ + (wr + g) * P::LDQ + ks * 8 + t4;
+    const float a[4] = {qa[0], qa[8 * P::LDQ], qa[4], qa[8 * P::LDQ + 4]};
+#pragma unroll
+    for (int n = 0; n < KW / 8; ++n) {
+      const float* kb = sK + (kw0 + n * 8 + g) * P::LDK + ks * 8 + t4;
+      mma_3xtf32(acc[n], a, kb[0], kb[4]);
+    }
+  }
+}
+
+// out += P V for the warp's 16 rows x CW channels over one key tile:
+// sP [QT][LDP], sV [KT][LDV]
+template <int CW>
+__device__ __forceinline__ void tile_pv(float (&acc)[CW / 8][4],
+                                        const __nv_bfloat16* sP,
+                                        const __nv_bfloat16* sV, int wr,
+                                        int cw0, int lane) {
+  using P = Tiled<__nv_bfloat16>;
+#pragma unroll
+  for (int k0 = 0; k0 < P::KT; k0 += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, sP + (wr + (lane & 15)) * P::LDP + k0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < CW / 16; ++n) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, sV + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                    P::LDV +
+                               cw0 + n * 16 + (lane >> 4) * 8);
+      mma_bf16(acc[2 * n], a, b[0], b[1]);
+      mma_bf16(acc[2 * n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void tile_pv(float (&acc)[CW / 8][4],
+                                        const float* sP, const float* sV,
+                                        int wr, int cw0, int lane) {
+  using P = Tiled<float>;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < P::KT / 8; ++ks) {
+    const float* pa = sP + (wr + g) * P::LDP + ks * 8 + t4;
+    const float a[4] = {pa[0], pa[8 * P::LDP], pa[4], pa[8 * P::LDP + 4]};
+#pragma unroll
+    for (int n = 0; n < CW / 8; ++n) {
+      const float* vb = sV + (ks * 8 + t4) * P::LDV + cw0 + n * 8 + g;
+      mma_3xtf32(acc[n], a, vb[0], vb[4 * P::LDV]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b,
+                                           bool both, bool vec) {
+  if (vec && both) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = __float2bfloat16(a);
+    if (both) p[1] = __float2bfloat16(b);
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b,
+                                           bool both, bool vec) {
+  if (vec && both) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    if (both) p[1] = b;
+  }
+}
+
+// One CTA per (cluster rank, QT-query tile, image); see the header.  The
+// work is one stream of key tiles, u < T of pass 1, then T per output
+// round; iteration u sends tile u's partials, reduces tile u - 1 and adds
+// P V of tile u - 2, and after a relaxed cluster barrier's arrive computes
+// tile u + 1's partials before it waits.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    attn_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int hw,
-                     int C, float scale) {
-  __shared__ float sQ[LQ][LCK + 1];
-  __shared__ float sK[LK][LCK + 1];
-  __shared__ float sS[LQ][LK + 1];
-  __shared__ float sV[LK][LCV];
+__global__ void __launch_bounds__(kTiledThreads, Tiled<T>::kMinBlocks)
+    attn_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out, int hw,
+                      int C, float scale, int vec) {
+  using P = Tiled<T>;
+  constexpr int QT = P::QT, KT = P::KT, KTR = P::KTR, NRG = QT / 16;
+  constexpr int NCP = 8 / NRG, KPL = KT / 32;  // column parts; keys a lane
+  constexpr int KW = KT / NCP, CW = CS / NCP;  // a warp's keys and channels
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const TiledLayout L = tiled_layout<T>(S);
+  T* sQ = reinterpret_cast<T*>(smem + L.q);
+  T* sK = reinterpret_cast<T*>(smem + L.k);
+  T* sV = reinterpret_cast<T*>(smem + L.v);
+  T* sP = reinterpret_cast<T*>(smem + L.p);
+  const float* sR = reinterpret_cast<const float*>(smem + L.r);
+  float* sM = reinterpret_cast<float*>(smem + L.m);
+  float* sL = reinterpret_cast<float*>(smem + L.l);
+  const uint32_t sR_u = smem_u32(smem + L.r), sP_u = smem_u32(sP);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * LQ, cv0 = blockIdx.y * LCV;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = (warp % NRG) * 16, cp = warp / NRG;
+  const int q0 = blockIdx.y * QT;
   const int64_t base = (int64_t)blockIdx.z * hw * C;
-  q += base;
-  k += base;
-  v += base;
-  out += base;
+  const int nslices = (C + CS - 1) / CS, nsl = (nslices + S - 1) / S;
+  const bool multi = nsl > 1;  // C > 512: slices loaded one at a time
+  const int T_ = (hw + KT - 1) / KT, NU = T_ * (1 + nsl);
+  const int rpr = (QT + S - 1) / S;
+  // this rank's rows of the tile: [ceil(QT r / S), ceil(QT (r + 1) / S))
+  const int r0 = (QT * rank + S - 1) / S;
+  const int own = (QT * (rank + 1) + S - 1) / S - r0;
+  const bool vc = vec != 0;
 
-  // ---- pass 1: row max and sum of exponentials; warp w owns rows 2w, 2w+1
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < hw; k0 += LK) {
-    long_scores<T>(q, k, hw, C, scale, q0, k0, sQ, sK, sS);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float s = sS[2 * warp + i][lane];
-      const float mn = fmaxf(m[i], warp_max(s));
-      l[i] = l[i] * expf(m[i] - mn) + warp_sum(expf(s - mn));
-      m[i] = mn;
-    }
+  // full_r[b], full_p[b]: the partials this rank's rows receive, and P,
+  // for the tiles in buffer b; one arrival (the arming thread) and the
+  // bytes of the peers' st.async stores complete a phase
+  __shared__ __align__(8) uint64_t bars[4];
+  const uint32_t full_r = smem_u32(&bars[0]), full_p = smem_u32(&bars[2]);
+  uint32_t phase = 0;  // bit b: parity of full_r[b]; bit 2 + b: full_p[b]
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(smem_u32(&bars[i]));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  for (int i = tid; i < rpr; i += kTiledThreads) sM[i] = -INFINITY, sL[i] = 0.f;
+  cluster_arrive();  // every CTA runs, its mbarriers set, before any push
 
-  // ---- pass 2: P = exp(s - m) / l rounded to T, out += P V_slice
-  float acc[LQ];
-#pragma unroll
-  for (int r = 0; r < LQ; ++r) acc[r] = 0.f;
-  const int c = cv0 + tid;
-  for (int k0 = 0; k0 < hw; k0 += LK) {
-    long_scores<T>(q, k, hw, C, scale, q0, k0, sQ, sK, sS);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 2 * warp + i;
-      sS[r][lane] = k0 + lane < hw
-                        ? to_f<T>(from_f<T>(expf(sS[r][lane] - m[i]) / l[i]))
-                        : 0.f;
+  float sacc[KW / 8][4];
+  float oacc[CW / 8][4];
+  if (!multi) load_tile(sQ, P::LDQ, q + base, q0, QT, hw, C, rank * CS, vc);
+  if (!multi) load_tile(sK, P::LDK, k + base, 0, KT, hw, C, rank * CS, vc);
+  cp_async_commit();
+
+  // iteration -1 only loads and computes tile 0's partial scores
+  for (int u = -1; u <= NU + 1; ++u) {
+    cluster_wait();
+    // issue V of pass-2 tile u (read at iteration u + 2) and K of tile
+    // u + 2 (read at the end of iteration u + 1) into their ring slots
+    if (u >= T_ && u < NU && rank + (u / T_ - 1) * S < nslices)
+      load_tile(sV + (u % kRing) * KT * P::LDV, P::LDV, v + base,
+                (u % T_) * KT, KT, hw, C, (rank + (u / T_ - 1) * S) * CS, vc);
+    cp_async_commit();
+    if (!multi && u + 2 < NU)
+      load_tile(sK + ((u + 2) % kRing) * KT * P::LDK, P::LDK, k + base,
+                ((u + 2) % T_) * KT, KT, hw, C, rank * CS, vc);
+    cp_async_commit();
+    if (tid == 0) {  // arm this iteration's receive buffers
+      if (u >= 0 && u < NU)
+        mbar_arm(full_r + 8 * (u & 1), (uint32_t)(S * own * KT * 4));
+      if (u - 1 >= T_ && u - 1 < NU)
+        mbar_arm(full_p + 8 * ((u - 1) & 1), (uint32_t)(QT * KT * sizeof(T)));
     }
-    for (int j = 0; j < LK; ++j)
-      sV[j][tid] = (k0 + j < hw && c < C)
-                       ? to_f<T>(v[(int64_t)(k0 + j) * C + c])
-                       : 0.f;
+    if (u >= 0 && u < NU) {  // (a) tile u's partials to their rows' owners
+      const uint32_t buf = sR_u + (uint32_t)((u & 1) * S * rpr * KTR) * 4;
+      const uint32_t bar = full_r + 8 * (u & 1);
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wr + g + 8 * h, owner = row * S / QT;
+          const int lrow = row - (QT * owner + S - 1) / S;
+          const uint32_t a =
+              buf + (uint32_t)(((rank * rpr + lrow) * KTR + cp * KW + 8 * j +
+                                2 * t4) *
+                               4);
+          st_async(mapa(a, owner), mapa(bar, owner), sacc[j][2 * h],
+                   sacc[j][2 * h + 1]);
+        }
+    }
+    if (u >= 1 && u <= NU) {  // (b) tile u - 1, this rank's rows
+      const int w = u - 1, key = (w % T_) * KT + KPL * lane;
+      const float* R = sR + (w & 1) * S * rpr * KTR + KPL * lane;
+      mbar_wait(full_r + 8 * (w & 1), (phase >> (w & 1)) & 1);
+      phase ^= 1u << (w & 1);
+      for (int lrow = warp; lrow < own; lrow += kTiledThreads / 32) {
+        float s[KPL];
+#pragma unroll
+        for (int i = 0; i < KPL; ++i) s[i] = R[lrow * KTR + i];
+        for (int src = 1; src < S; ++src)
+#pragma unroll
+          for (int i = 0; i < KPL; ++i) s[i] += R[(src * rpr + lrow) * KTR + i];
+        float mt = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < KPL; ++i) {
+          s[i] = key + i < hw ? s[i] * scale : -INFINITY;
+          mt = fmaxf(mt, s[i]);
+        }
+        if (w < T_) {  // pass 1
+          const float m = sM[lrow], mn = fmaxf(m, warp_max(mt));
+          float e = 0.f;
+#pragma unroll
+          for (int i = 0; i < KPL; ++i) e += expf(s[i] - mn);
+          const float l = sL[lrow] * expf(m - mn) + warp_sum(e);
+          if (lane == 0) sM[lrow] = mn, sL[lrow] = l;
+        } else {  // pass 2: P rounded to T after the division, to every rank
+          const float m = sM[lrow], l = sL[lrow];
+          T p[KPL];
+#pragma unroll
+          for (int i = 0; i < KPL; ++i)
+            p[i] = from_f<T>(key + i < hw ? expf(s[i] - m) / l : 0.f);
+          const uint32_t a = sP_u + (uint32_t)((((w & 1) * QT + r0 + lrow) *
+                                                    P::LDP +
+                                                KPL * lane) *
+                                               sizeof(T));
+          for (int r = 0; r < S; ++r)
+            push_p(mapa(a, r), mapa(full_p + 8 * (w & 1), r), p, lane);
+        }
+      }
+    }
+    if (u - 2 >= T_) {  // (c) P V of pass-2 tile u - 2
+      const int w = u - 2, kt = w % T_, sl = rank + (w / T_ - 1) * S;
+      mbar_wait(full_p + 8 * (w & 1), (phase >> (2 + (w & 1))) & 1);
+      phase ^= 1u << (2 + (w & 1));
+      if (sl < nslices) {
+        if (kt == 0)
+#pragma unroll
+          for (int j = 0; j < CW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+        tile_pv<CW>(oacc, sP + (w & 1) * QT * P::LDP,
+                    sV + (w % kRing) * KT * P::LDV, wr, cp * CW, lane);
+        if (kt == T_ - 1) {
+#pragma unroll
+          for (int j = 0; j < CW / 8; ++j) {
+            const int c = sl * CS + cp * CW + 8 * j + 2 * t4;
+            if (c >= C) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = q0 + wr + g + 8 * h;
+              if (row < hw)
+                store_pair(out + base + (int64_t)row * C + c, oacc[j][2 * h],
+                           oacc[j][2 * h + 1], c + 1 < C, vc);
+            }
+          }
+        }
+      }
+    }
+    cluster_arrive_relaxed();  // this iteration's reads are done
+    // the next tile's partial scores while the other ranks catch up
+    cp_async_wait<2>();  // K of tile u + 1, V of tile u - 1
     __syncthreads();
+    if (u + 1 < NU) {
 #pragma unroll
-    for (int r = 0; r < LQ; ++r)
-#pragma unroll 8
-      for (int j = 0; j < LK; ++j) acc[r] += sS[r][j] * sV[j][tid];
-    __syncthreads();  // sS and sV are rewritten by the next tile
+      for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+      if (!multi) {
+        tile_scores<KW>(sacc, sQ, sK + ((u + 1) % kRing) * KT * P::LDK, wr,
+                        cp * KW, lane);
+      } else {
+        for (int sl = rank; sl < nslices; sl += S) {  // in slice order
+          load_tile(sQ, P::LDQ, q + base, q0, QT, hw, C, sl * CS, vc);
+          load_tile(sK, P::LDK, k + base, ((u + 1) % T_) * KT, KT, hw, C,
+                    sl * CS, vc);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          tile_scores<KW>(sacc, sQ, sK, wr, cp * KW, lane);
+          __syncthreads();  // sQ and sK are rewritten by the next slice
+        }
+      }
+    }
   }
-  if (c < C)
-#pragma unroll
-    for (int r = 0; r < LQ; ++r)
-      if (q0 + r < hw) out[(int64_t)(q0 + r) * C + c] = from_f<T>(acc[r]);
+  cluster_wait();
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out: [batch, hw, C], contiguous, 16-byte aligned for the
-// tensor-core kernel; hw <= 256.  cluster: 0 runs the CUDA-core kernel
-// (is_bf16: 1 for bfloat16, 0 for float32); 1..8 runs the tensor-core kernel
-// (bf16, C % 8 == 0) with clusters of that many CTAs, which must be
-// min(8, ceil(C / 64)).  Returns the launch's cudaError_t.
-int sr3d_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                       int batch, int hw, int C, float scale, int is_bf16,
-                       int cluster, void* stream) {
-  if (hw > kMaxHW || hw < 1 || C < 1 || batch < 1)
+// The tensor-core kernel: q, k, v, out [batch, hw, C] bf16, contiguous,
+// 16-byte aligned, C % 8 == 0, hw <= 256; cluster = min(8, ceil(C / 64)).
+// Returns the launch's cudaError_t.
+int sr3d_attention_mma_fwd(const void* q, const void* k, const void* v,
+                           void* out, int batch, int hw, int C, float scale,
+                           int cluster, void* stream) {
+  const int slices = (C + CS - 1) / CS;
+  const int want = slices < kMaxCluster ? slices : kMaxCluster;
+  if (hw > kMaxHW || hw < 1 || C < 1 || C % 8 || batch < 1 ||
+      batch > 65535 || cluster != want ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) &
+       15))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cluster > 0) {
-    const int slices = (C + CS - 1) / CS;
-    const int want = slices < kMaxCluster ? slices : kMaxCluster;
-    if (!is_bf16 || C % 8 || cluster != want ||
-        ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) &
-         15))
-      return (int)cudaErrorInvalidValue;
-    static bool smem_set = false;
-    if (!smem_set) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          attn_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)mma_smem_bytes(kMaxHW));
-      if (e != cudaSuccess) return (int)e;
-      smem_set = true;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)cluster, (unsigned)((hw + QT - 1) / QT),
-                       (unsigned)batch);
-    cfg.blockDim = dim3(kMmaThreads);
-    cfg.dynamicSmemBytes = mma_smem_bytes(hw);
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t e = cudaLaunchKernelEx(
-        &cfg, attn_mma_kernel, static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), hw, C, scale);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)mma_smem_bytes(kMaxHW));
     if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    smem_set = true;
   }
-  dim3 grid((unsigned)((hw + TQ - 1) / TQ), (unsigned)batch);
-  if (is_bf16) {
-    attn_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), hw, C, scale);
-  } else {
-    attn_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), hw, C, scale);
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, (unsigned)((hw + QT - 1) / QT),
+                     (unsigned)batch);
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = mma_smem_bytes(hw);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, attn_mma_kernel, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      hw, C, scale);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The long-sequence kernel, any hw (the plan sends it hw > 256): q, k, v,
-// out as above, bf16 (is_bf16 = 1) or fp32.  Returns the launch's
-// cudaError_t.
-int sr3d_attention_long_fwd(const void* q, const void* k, const void* v,
-                            void* out, int batch, int hw, int C, float scale,
-                            int is_bf16, void* stream) {
-  if (hw < 1 || C < 1 || batch < 1 || batch > 65535)
+}  // extern "C"
+
+namespace {
+
+template <typename T>
+int launch_tiled(const void* q, const void* k, const void* v, void* out,
+                 int batch, int hw, int C, float scale, int cluster, int vec,
+                 cudaStream_t s) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    int most = 0;
+    for (int c = 1; c <= kMaxCluster; ++c)
+      most = tiled_layout<T>(c).bytes > most ? tiled_layout<T>(c).bytes : most;
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_tiled_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        most);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster,
+                     (unsigned)((hw + Tiled<T>::QT - 1) / Tiled<T>::QT),
+                     (unsigned)batch);
+  cfg.blockDim = dim3(kTiledThreads);
+  cfg.dynamicSmemBytes = (size_t)tiled_layout<T>(cluster).bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, attn_tiled_kernel<T>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
+      hw, C, scale, vec);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The tiled cluster kernel, any hw, any C: q, k, v, out [batch, hw, C],
+// contiguous, bf16 (is_bf16 = 1, tensor cores) or fp32 (3xTF32); cluster =
+// min(8, ceil(C / 64)); vec = 1 loads 16 bytes a thread, which needs rows
+// of a multiple of 16 bytes and 16-byte aligned pointers.  Returns the
+// launch's cudaError_t.
+int sr3d_attention_tiled_fwd(const void* q, const void* k, const void* v,
+                             void* out, int batch, int hw, int C, float scale,
+                             int is_bf16, int cluster, int vec, void* stream) {
+  const int slices = (C + CS - 1) / CS;
+  const int want = slices < kMaxCluster ? slices : kMaxCluster;
+  const int el = is_bf16 ? 2 : 4;
+  if (hw < 1 || C < 1 || batch < 1 || batch > 65535 || cluster != want ||
+      (vec && ((C * el) % 16 ||
+               ((reinterpret_cast<uintptr_t>(q) |
+                 reinterpret_cast<uintptr_t>(k) |
+                 reinterpret_cast<uintptr_t>(v) |
+                 reinterpret_cast<uintptr_t>(out)) &
+                15))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((hw + LQ - 1) / LQ),
-                  (unsigned)((C + LCV - 1) / LCV), (unsigned)batch);
-  if (is_bf16) {
-    attn_long_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), hw, C, scale);
-  } else {
-    attn_long_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), hw, C, scale);
-  }
-  return (int)cudaGetLastError();
+  return is_bf16 ? launch_tiled<__nv_bfloat16>(q, k, v, out, batch, hw, C,
+                                               scale, cluster, vec, s)
+                 : launch_tiled<float>(q, k, v, out, batch, hw, C, scale,
+                                       cluster, vec, s);
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 GROUPS = (("gn_swish one-pass (port)", ("gn_swish_onepass_kernel",)),
           ("gn_stats (port)", ("gn_stats_kernel",)),
           ("gn_swish apply (port)", ("gn_swish_apply_kernel",)),
-          ("attention (port)", ("attn_mma_kernel", "attn_fwd_kernel")),
+          ("attention (port)", ("attn_mma_kernel", "attn_tiled_kernel")),
           ("cuDNN NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
           ("convolution (cuDNN)", ("conv", "xmma", "implicit", "cutlass",
                                    "sm90", "gemm", "winograd")),

@@ -537,8 +537,12 @@ def test_remat_keeps_gradients_with_dropout(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (2, 1024, 512),  # 256² data at the default attn_res (16)
+    (1, 4096, 512),  # 512² data
+    (2, 1024, 256),  # clusters of 4
+    (1, 2049, 512),  # a ragged last key tile and query tile
     (1, 257, 64),    # one key past the on-chip limit, a ragged tile
-    (1, 300, 40),    # C not a multiple of the channel chunk
+    (1, 300, 40),    # C not a multiple of the channel slice
+    (1, 520, 1032),  # 17 slices over 8 ranks: output rounds
 ])
 def test_attention_long_path_matches_plain(cuda, shape, dtype):
     assert attn_plan(shape[1], shape[2], dtype).path == "long"
@@ -551,6 +555,39 @@ def test_attention_long_path_matches_plain(cuda, shape, dtype):
     assert launch_counts()["spatial_attention"] == 1
     ref = spatial_attention_reference(q, k, v, shape[-1] ** -0.5)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+# The tiled kernel (plan paths long and simt) adds the cluster's partial
+# scores in rank order and its P V in key-tile order: equal bits each call.
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 1024, 512), torch.bfloat16),  # long, tensor cores
+    ((1, 300, 40), torch.float32),     # long, 3xTF32
+    ((8, 64, 512), torch.float32),     # simt, 3xTF32
+    ((2, 16, 36), torch.bfloat16),     # simt, C % 8 != 0
+])
+def test_tiled_attention_repeats_bit_for_bit(cuda, shape, dtype):
+    assert attn_plan(shape[1], shape[2], dtype).path in ("long", "simt")
+    g = torch.Generator(device="cpu").manual_seed(8)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for _ in range(3))
+    first = spatial_attention(q, k, v)
+    for _ in range(3):
+        assert torch.equal(spatial_attention(q, k, v), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_attention_takes_unaligned_views(cuda, dtype):
+    """Views that start off a 16-byte boundary load an element at a time
+    (no 16-byte cp.async) and give the same result as aligned copies."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    shape = (1, 300, 64)
+    flat = [torch.randn(300 * 64 + 1, generator=g).to(dtype).to(cuda)
+            for _ in range(3)]
+    q, k, v = (f[1:].view(shape) for f in flat)
+    assert q.data_ptr() % 16 != 0
+    out = spatial_attention(q, k, v)
+    ref = spatial_attention(*(t.clone() for t in (q, k, v)))
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
 # The int8 conv sums integers exactly and dequantizes in the plain

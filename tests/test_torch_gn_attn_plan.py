@@ -180,15 +180,25 @@ def test_gn_onepass_emulation_matches_pallas(shape, groups, cluster):
     (4, 512, BF16, ("mma", 8)),     # the 16_32 configs' mid block
     (37, 40, BF16, ("mma", 1)),
     (256, 1024, BF16, ("mma", 8)),  # two slices a CTA
-    (64, 36, BF16, ("simt", 0)),    # C % 8 != 0
-    (64, 512, F32, ("simt", 0)),    # no TF32
-    (257, 64, BF16, ("long", 0)),   # past the on-chip score rows
-    (1024, 512, BF16, ("long", 0)),  # 256² data at the default attn_res
-    (4096, 36, F32, ("long", 0)),
+    (256, 512, BF16, ("mma", 8)),   # 129-256 tokens stay on attn_mma_kernel
+    (129, 64, BF16, ("mma", 1)),
+    (64, 36, BF16, ("simt", 1)),    # C % 8 != 0: the tiled kernel
+    (16, 100, BF16, ("simt", 2)),
+    (64, 512, F32, ("simt", 8)),    # fp32: the tiled kernel in 3xTF32
+    (256, 128, F32, ("simt", 2)),
+    (1, 9, F32, ("simt", 1)),
+    (257, 64, BF16, ("long", 1)),   # past the on-chip score rows
+    (1024, 512, BF16, ("long", 8)),  # 256² data at the default attn_res
+    (4096, 512, BF16, ("long", 8)),  # 512² data
+    (2049, 1032, BF16, ("long", 8)),  # 17 slices: more than one a rank
+    (4096, 36, F32, ("long", 1)),
+    (300, 40, F32, ("long", 1)),
 ])
 def test_attn_plan(HW, C, dtype, want):
     p = attn_plan(HW, C, dtype)
     assert (p.path, p.cluster) == want, p.why
+    if p.path != "mma":
+        assert ("3xTF32" in p.why) == (dtype == F32), p.why
 
 
 @pytest.mark.parametrize("C", [8, 40, 64, 128, 200, 512, 520, 1024])
@@ -256,43 +266,206 @@ def test_attn_cluster_emulation_matches_pallas(shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
-LONG_KEYS = 32  # keys per tile of attn_long_kernel
+# attn_tiled_kernel (plan paths long and simt), restated from
+# csrc/attention.cu: 64-key tiles, 64 query rows a cluster, rank r of S
+# owning the rows [ceil(64 r / S), ceil(64 (r + 1) / S))
+TILE_KEYS = 64
+TILED_ROWS = 64
+RING = 3  # K and V tiles in flight
 
 
-def _emulate_attn_long(q, k, v, scale):
-    """attn_long_kernel's arithmetic in torch: pass 1 keeps each row's
-    running max m and sum l = Σ exp(s − m) over 32-key tiles, rescaling l
-    when m grows; pass 2 forms P = exp(s − m) / l per tile, rounds it to
-    v's type and adds P V in key order."""
+def _tiled_rows(QT: int, S: int) -> list[tuple[int, int]]:
+    return [(-(-QT * r // S), -(-QT * (r + 1) // S)) for r in range(S)]
+
+
+@pytest.mark.parametrize("QT", [TILED_ROWS, 128])
+@pytest.mark.parametrize("S", range(1, 9))
+def test_attn_tiled_rows_cover_the_tile_once(QT, S):
+    """Each row of a query tile has one owner, found from the row as the
+    kernel finds it (``row·S / QT``), and fits the owner's receive buffer
+    (``ceil(QT / S)`` rows a source rank)."""
+    rows = _tiled_rows(QT, S)
+    assert rows[0][0] == 0 and rows[-1][1] == QT
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    rpr = -(-QT // S)
+    for r, (lo, hi) in enumerate(rows):
+        assert 0 < hi - lo <= rpr
+        assert all(row * S // QT == r for row in range(lo, hi))
+
+
+def _tiled_schedule(T: int, rounds: int, multi: bool) -> None:
+    """Replay the slots of attn_tiled_kernel's loop and check that every
+    read finds the tile it wants, visible, and that no write lands on a
+    slot whose old tile may still be read.  Iteration u runs from u = -1
+    to NU + 1 (NU = T·(1 + rounds)); time 2u + 2 is its top (after the
+    cluster barrier's wait: loads issued, partials and P pushed, the
+    partials of tile u - 1 and P of tile u - 2 read), time 2u + 3 its
+    bottom (after the arrive, ``cp.async.wait_group 2`` and
+    ``__syncthreads``: K of tile u + 1 read).  A cp.async issued at time
+    t is visible from t + 3 (the next bottom); a DSMEM push at a top from
+    the next top; a write at time t is safe against reads up to t - 2 (a
+    top's writes wait for every thread's arrive at the previous
+    iteration; the previous bottom runs beside them)."""
+    NU = T * (1 + rounds)
+    slots: dict = {}
+
+    def write(buf, slot, tile, t, visible):
+        old = slots.get((buf, slot))
+        if old is not None:
+            assert old["last_read"] <= t - 2, (buf, slot, old, tile, t)
+        slots[(buf, slot)] = {"tile": tile, "from": visible, "last_read": -9}
+
+    def read(buf, slot, tile, t):
+        s = slots[(buf, slot)]
+        assert s["tile"] == tile and s["from"] <= t, (buf, slot, s, tile, t)
+        s["last_read"] = t
+
+    if not multi:
+        write("K", 0, 0, -2, 1)      # the prologue: K of tile 0
+    for u in range(-1, NU + 2):
+        top, bottom = 2 * u + 2, 2 * u + 3
+        if T <= u < NU:
+            write("V", u % RING, u, top, top + 3)
+        if not multi and u + 2 < NU:
+            write("K", (u + 2) % RING, u + 2, top, top + 3)
+        if 0 <= u < NU:
+            write("R", u & 1, u, top, top + 2)
+        if 1 <= u <= NU:
+            read("R", (u - 1) & 1, u - 1, top)
+            if u - 1 >= T:
+                write("P", (u - 1) & 1, u - 1, top, top + 2)
+        if u - 2 >= T:
+            read("P", (u - 2) & 1, u - 2, top)
+            read("V", (u - 2) % RING, u - 2, top)
+        if u + 1 < NU and not multi:
+            read("K", (u + 1) % RING, u + 1, bottom)
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 8, 33])
+@pytest.mark.parametrize("rounds,multi", [(1, False), (2, True),
+                                          (3, True)])
+def test_attn_tiled_schedule_reads_what_it_wants(T, rounds, multi):
+    _tiled_schedule(T, rounds, multi)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds it."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, tf32x3: bool) -> torch.Tensor:
+    """``a @ b`` in fp32; in 3xTF32, each operand split into a TF32 hi and
+    lo and a_lo b_hi + a_hi b_lo + a_hi b_hi summed (a_lo b_lo dropped)."""
+    if not tf32x3:
+        return a @ b
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _emulate_attn_tiled(q, k, v, scale):
+    """attn_tiled_kernel's arithmetic in torch (bf16 inputs: exact fp32
+    products; fp32: 3xTF32): per 32-key tile each cluster rank sums Q_s
+    K_sᵀ over its 64-channel slices in slice order, the owner of a row adds
+    the ranks' partials in rank order and scales them; pass 1 keeps the
+    running max m and sum l = Σ exp(s − m) (rescaled when m grows), pass 2
+    forms P = exp(s − m) / l per tile, rounds it to v's type after the
+    division and adds P V in key-tile order."""
     B, HW, C = q.shape
+    tf32x3 = q.dtype == F32
+    cluster = attn_plan(HW, C, q.dtype).cluster
+    slices = _cluster_slices(C, cluster)
     qf, kf, vf = q.float(), k.float(), v.float()
+    tiles = [(k0, min(HW, k0 + TILE_KEYS)) for k0 in range(0, HW, TILE_KEYS)]
+
+    def scores(k0, k1):
+        parts = []
+        for mine in slices:
+            part = torch.zeros(B, HW, k1 - k0)
+            for lo, hi in mine:
+                part = part + _product(qf[..., lo:hi],
+                                       kf[:, k0:k1, lo:hi].transpose(1, 2),
+                                       tf32x3)
+            parts.append(part)
+        s = parts[0]
+        for part in parts[1:]:
+            s = s + part
+        return s * scale
+
     m = torch.full((B, HW, 1), -float("inf"))
     l = torch.zeros(B, HW, 1)
-    tiles = range(0, HW, LONG_KEYS)
-    for k0 in tiles:
-        s = qf @ kf[:, k0:k0 + LONG_KEYS].transpose(1, 2) * scale
+    for k0, k1 in tiles:
+        s = scores(k0, k1)
         mn = torch.maximum(m, s.amax(-1, keepdim=True))
         l = l * torch.exp(m - mn) + torch.exp(s - mn).sum(-1, keepdim=True)
         m = mn
     out = torch.zeros(B, HW, C)
-    for k0 in tiles:
-        s = qf @ kf[:, k0:k0 + LONG_KEYS].transpose(1, 2) * scale
-        p = (torch.exp(s - m) / l).to(v.dtype).float()
-        out = out + p @ vf[:, k0:k0 + LONG_KEYS]
+    for k0, k1 in tiles:
+        p = (torch.exp(scores(k0, k1) - m) / l).to(v.dtype).float()
+        out = out + _product(p, vf[:, k0:k1], tf32x3)
     return out.to(q.dtype)
 
 
-@pytest.mark.parametrize("shape", [(1, 300, 40), (2, 257, 64)])
-def test_attn_long_emulation_matches_pallas(shape):
-    """The long path's two passes (online max and sum, then P rounded
-    after the division, as the TPU kernel rounds it) against the Pallas
-    kernel in interpret mode, fp32, its own tolerance (1e-5)."""
-    rng = np.random.RandomState(4)
-    q, k, v = (rng.randn(*shape).astype(np.float32) for _ in range(3))
+def _pallas_and_tiled(shape, dtype, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .to(dtype) for _ in range(3))
     scale = 1.0 / float(np.sqrt(shape[-1]))
     with pltpu.force_tpu_interpret_mode():
-        ref = _attn_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                           scale)
-    got = _emulate_attn_long(*(torch.from_numpy(a) for a in (q, k, v)),
-                             scale)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+        ref = _attn_pallas(*(jnp.asarray(t.float().numpy()).astype(
+            jnp.bfloat16 if dtype == BF16 else jnp.float32)
+            for t in (q, k, v)), scale)
+    got = _emulate_attn_tiled(q, k, v, scale)
+    return got.float().numpy(), np.asarray(ref.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 300, 40), F32),    # a ragged last tile, C not a multiple of 64
+    ((2, 257, 64), F32),    # one key past a tile
+    ((1, 520, 72), F32),    # two slices: clusters of 2
+    ((1, 300, 40), BF16),
+    ((1, 288, 600), BF16),  # 10 slices over 8 ranks: rank 0 and 1 have two
+])
+def test_attn_long_emulation_matches_pallas(shape, dtype):
+    """The long path's two passes (online max and sum, then P rounded
+    after the division, as the TPU kernel rounds it) against the Pallas
+    kernel in interpret mode: fp32 in 3xTF32 at the Pallas kernel's own
+    tolerance (1e-5), bf16 at one bf16 ulp of the output."""
+    assert attn_plan(shape[1], shape[2], dtype).path == "long"
+    got, ref = _pallas_and_tiled(shape, dtype, 4)
+    tol = dict(atol=1e-5) if dtype == F32 else dict(atol=2e-2, rtol=8e-3)
+    np.testing.assert_allclose(got, ref, **tol)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 64, 128), F32),    # the mid block's tokens, clusters of 2
+    ((1, 37, 200), F32),    # a ragged tile and last slice, clusters of 4
+    ((1, 70, 520), F32),    # 9 slices: rank 0 has two
+    ((1, 4, 9), F32),       # C % 4 != 0: loads an element at a time
+    ((2, 16, 36), BF16),    # C % 8 != 0
+    ((1, 45, 100), BF16),
+])
+def test_attn_simt_emulation_matches_pallas(shape, dtype):
+    """The simt path (fp32 in 3xTF32, bf16 with C % 8 != 0) is the tiled
+    kernel at <= 256 tokens: against the Pallas kernel in interpret mode,
+    fp32 at 1e-5 (3xTF32 drops only a_lo b_lo, ~2^-22 of a product),
+    bf16 at one bf16 ulp."""
+    assert attn_plan(shape[1], shape[2], dtype).path == "simt"
+    got, ref = _pallas_and_tiled(shape, dtype, 5)
+    tol = dict(atol=1e-5) if dtype == F32 else dict(atol=2e-2, rtol=8e-3)
+    np.testing.assert_allclose(got, ref, **tol)
+
+
+def test_tf32_split_keeps_fp32_accuracy_where_tf32_alone_does_not():
+    """3xTF32 products of fp32 sums stay within ~1e-6 of fp64 where TF32
+    alone is ~1e-3 off: why the fp32 path may use the tensor cores only
+    this way."""
+    rng = np.random.RandomState(6)
+    a = torch.from_numpy(rng.randn(64, 512).astype(np.float32))
+    b = torch.from_numpy(rng.randn(512, 64).astype(np.float32))
+    exact = a.double() @ b.double()
+    e3 = float((_product(a, b, True).double() - exact).abs().max())
+    e1 = float((_tf32(a) @ _tf32(b) - exact).abs().max())
+    assert e3 < 1e-4 < 1e-2 < e1, (e3, e1)

@@ -63,6 +63,47 @@ def test_unet_forward_matches_jax(unets):
     np.testing.assert_allclose(out, ref, atol=ATOL_UNET)
 
 
+def test_unet_attention_above_256_tokens_matches_jax(monkeypatch):
+    """An attention level past the 256 tokens ``attn_mma_kernel`` holds:
+    the gate of ``image_size=16, attn_res=(16,)`` over 32² inputs attends
+    over 32² = 1024 tokens at the first level (the plan's long path on the
+    card) and over 256 at the mid block; fp32 against JAX."""
+    from sr3d_tpu.models.sr3_unet import SR3UNet as JaxUNet
+
+    kw = dict(inner_channel=16, norm_groups=8, channel_mults=(1, 2),
+              attn_res=(16,), res_blocks=1, image_size=16)
+    unet = JaxUNet(**kw, dropout=0.0, dtype=jnp.float32)
+    rng = np.random.RandomState(11)
+    x = rng.randn(1, 32, 32, 6).astype(np.float32)
+    t = rng.rand(1, 1).astype(np.float32)
+    params = unet.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(t))
+    params = jax.tree.map(
+        lambda a: np.asarray(a) + rng.randn(*a.shape).astype(np.float32)
+        * 0.05, params)
+    port = TorchUNet(**kw, dtype=torch.float32)
+    port.load_state_dict(flax_to_state_dict(params))
+    port.eval()
+    attn = sorted(n for n, _ in port.named_modules() if n.endswith("attn"))
+    assert attn == ["down_0_0.attn", "mid_0.attn", "up_0_0.attn",
+                    "up_0_1.attn"]
+    import sr3d_torch.models.sr3_unet as unet_mod
+
+    tokens = []
+    attend = unet_mod.spatial_attention
+
+    def recorded(q, k, v, channels=None):
+        tokens.append(q.shape[1])
+        return attend(q, k, v, channels)
+
+    monkeypatch.setattr(unet_mod, "spatial_attention", recorded)
+    ref = np.asarray(jax.jit(unet.apply)(params, jnp.asarray(x),
+                                         jnp.asarray(t)))
+    with torch.no_grad():
+        out = nhwc(port(nchw(x), torch.from_numpy(t)))
+    assert sorted(tokens) == [256, 1024, 1024, 1024]
+    np.testing.assert_allclose(out, ref, atol=ATOL_UNET)
+
+
 def test_unet_rejects_int8_config(unets):
     """An int8 config (quant_min_res 1, resampling on) builds: the same
     parameters as the fp UNet, so its weights load unchanged; ``quant``
