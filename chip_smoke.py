@@ -81,9 +81,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 10. the joint Trainer through the training CLI (``sr3d_torch.cli.main``)
    at the flagship's full width on a synthetic joint root: 4 steps,
    a resume to step 6, ``-p val``, then the port's own checkpoint served;
-   the JAX Trainer's files, the resume, finite losses and the kernels
-   launched checked; s/step, the loader-wait share, checkpoint write and
-   read times and sizes, val s/face and peak memory printed;
+   the JAX Trainer's files, the rotated checkpoints (no temporary file),
+   the resume, finite losses and the kernels launched checked; s/step,
+   the loader-wait share, each background checkpoint's blocking and
+   writer times and size, read times, val s/face and peak memory
+   printed; (b) a background save at full width (``grad_accum`` 2) with
+   train steps run in place while it is written: the file equal leaf for
+   leaf to a synchronous save of the state at ``save``, the control (a
+   save after the steps) different, the s/step of the steps that overlap
+   the write against those that do not;
 11. the staged workflow's branch trainers at the same full width, on phase
    10's data: SR-only pretraining through ``cli.main --sr-only`` (16 → 128
    faces, batch 2, 4 steps and a resume to 6), the joint Trainer
@@ -2243,7 +2249,8 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
         peaks[tag] = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = launch_counts()
 
-    ckpts = sorted(p.name for p in (out / "checkpoint").glob("ckpt_*.npz"))
+    # every file of the directory: the rotated set, no temporary file
+    ckpts = sorted(p.name for p in (out / "checkpoint").iterdir())
     require(ckpts == ["ckpt_0000000004.npz", "ckpt_0000000006.npz"],
             f"rotated checkpoints {ckpts}")
     res = out / "results" / "step_4" / "00000"
@@ -2303,9 +2310,12 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
     wait = sum(v for _, v in tagged("perf/loader_wait_s"))
     loop = sum(v for _, v in tagged("perf/loop_s"))
     cadence = sum(v for _, v in tagged("perf/cadence_s"))
-    writes = tagged("perf/ckpt_write_s")
+    snaps, waits, writes, mib = (dict(tagged(f"perf/ckpt_{k}")) for k in (
+        "snapshot_s", "wait_s", "write_s", "write_mib"))
+    require(sorted(snaps) == sorted(writes) == [2, 4, 6],
+            f"checkpoints saved at {sorted(snaps)}, written at "
+            f"{sorted(writes)}; the Trainer saves at 2, 4 and 6")
     reads = tagged("perf/ckpt_read_s")
-    mib = tagged("perf/ckpt_write_mib")
     per_face = tagged("perf/val_s_per_face")
     print(f"    cli main: train 4 steps {walls['train 4']:.1f} s, resume at "
           f"step 4 to 6 {walls['resume +2']:.1f} s, -p val -ckt step 6 "
@@ -2319,10 +2329,12 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
           f"training ({100 * wait / (loop - cadence):.1f}%); loop "
           f"{loop:.1f} s with {cadence:.1f} s of cadenced work: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in kinds.items()))
-    print(f"    checkpoint writes {len(writes)}: "
-          f"{', '.join(f'{v:.2f}' for _, v in writes)} s, "
-          f"{mib[0][1]:.0f} MiB each; reads "
-          f"{', '.join(f'{v:.2f}' for _, v in reads)} s")
+    print("    checkpoints in the background, step: blocking (of it the "
+          "wait on the write before) / the writer's own time, size: "
+          + ", ".join(f"{k}: {snaps[k]:.3f} ({waits[k]:.3f}) / "
+                      f"{writes[k]:.2f} s, {mib[k]:.0f} MiB"
+                      for k in sorted(snaps))
+          + "; reads " + ", ".join(f"{v:.2f}" for _, v in reads) + " s")
     print(f"    evaluate (DDIM-25, exports): "
           f"{', '.join(f'{v:.3f}' for _, v in per_face)} s/face; peak "
           f"device memory " + ", ".join(f"{k} {v:.2f} GiB"
@@ -2333,7 +2345,143 @@ def phase_trainer(dev, flame, tmp: Path, bare_step_s: float
     print(f"    files of the JAX Trainer present; losses finite; launches "
           f"{counts}")
     print(f"    {smi_line()}")
+    phase_background_checkpoint(dev, flame, root / "background")
+    require_gn_backward(launch_counts(), plain0, "phase 10 (b)")
     return counts, overlay
+
+
+def _npz_differing(a: Path, b: Path) -> set[int]:
+    """The indices of the ``leaf_i`` that differ (value or dtype) between
+    two ``.npz`` files with the same leaves, read one leaf at a time."""
+    with np.load(a) as fa, np.load(b) as fb:
+        require(sorted(fa.files) == sorted(fb.files),
+                f"{a.name} and {b.name} hold other leaves")
+        return {int(k[5:]) for k in fa.files
+                if fa[k].dtype != fb[k].dtype
+                or not np.array_equal(fa[k], fb[k])}
+
+
+def _state_blocks(mods, state) -> dict[str, range]:
+    """The leaf indices of each block of a train-state file."""
+    from sr3d_torch.train.checkpoint import jax_tree_flatten, train_state_tree
+
+    tree = train_state_tree(mods, state, {"epoch": 0, "global_step": 0},
+                            tensors=True)
+    step, params, stats, opt, ema = tree["state"]
+    parts = [("meta", tree["meta"]), ("step", step), ("params", params),
+             ("arcface_stats", stats)]
+    if state.grad_accum > 1:
+        mini, updates, inner, acc, _ = opt
+        parts += [("counts", (mini, updates)), ("adam", inner),
+                  ("acc_grads", acc)]
+    else:
+        parts.append(("adam", opt))
+    parts.append(("ema", ema))
+    out, at = {}, 0
+    for name, part in parts:
+        n = len(jax_tree_flatten(part)[0])
+        out[name], at = range(at, at + n), at + n
+    return out
+
+
+def phase_background_checkpoint(dev, flame, tmp: Path,
+                                config: Path = CONFIG) -> None:
+    """(10 b) The checkpoint manager's background save at the flagship's
+    full width, model2 with the DDIM-25 hand-off, at ``grad_accum`` 2 so
+    that the file holds the accumulated gradients too: after 7 steps (one
+    micro-step into an update) a synchronous save of the state, then a
+    background save, and at once the next steps, in place, while the
+    writer runs; then ``wait()``.  The file must equal the synchronous one
+    leaf for leaf; the control, a synchronous save after those steps, must
+    differ in the parameters, the Adam moments, the accumulated gradients
+    and the EMA.  A second save reuses the pinned buffers.  Prints each
+    save's blocking time split by cause, the writer's time, and the s/step
+    of the steps that overlap a write against those that do not."""
+    from sr3d_torch.train.checkpoint import (CheckpointManager,
+                                             save_train_state)
+    from sr3d_torch.train.joint import (build_joint, init_train_state,
+                                        make_train_step)
+
+    cfg, batch = train_setup(config)
+    cfg.tpu.grad_accum = 2
+    mods = build_joint(cfg, flame=flame, init_seed=0, device=dev)
+    state = init_train_state(mods, cfg)
+    step = make_train_step(cfg.sr.train.ema_scheduler)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one() -> float:
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(mods, state, batch, generator=gen)
+        require(math.isfinite(float(met["loss"])), "loss not finite")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for _ in range(3):
+        one()                               # cuDNN plans, the first update
+    quiet = [one() for _ in range(4)]
+    require(state.mini_step == 1, f"mini_step {state.mini_step}")
+    meta = {"epoch": 0, "global_step": state.step}
+    t0 = time.perf_counter()
+    before = save_train_state(tmp / "sync_before.npz", mods, state, meta)
+    t_sync = time.perf_counter() - t0
+    mgr = CheckpointManager(tmp / "checkpoint", max_to_keep=2)
+    t0 = time.perf_counter()
+    path = mgr.save(state.step, mods, state, meta)
+    t_block = time.perf_counter() - t0
+    held = not path.exists()
+    saves = [(t_block, mgr.last_wait_s, mgr.last_snapshot_s,
+              mgr.last_alloc_bytes)]
+    overlap = []
+    while mgr.in_flight and len(overlap) < 16:
+        overlap.append(one())               # in place, the write in flight
+    mgr.wait()
+    require(held and overlap, f"the write was not in flight: file at "
+            f"return {not held}, {len(overlap)} steps overlapped it")
+    same = _npz_differing(path, before)
+    after = save_train_state(tmp / "sync_after.npz", mods, state, meta)
+    late = _npz_differing(after, before)
+    blocks = _state_blocks(mods, state)
+    moved = [k for k, r in blocks.items() if late & set(r)]
+    require(not same, f"the background file differs from the state at "
+            f"save in leaves {sorted(same)[:10]}")
+    require({"params", "adam", "acc_grads", "ema"} <= set(moved),
+            f"the control (a save after the steps) differs only in {moved}")
+    # the pinned buffers reused
+    t0 = time.perf_counter()
+    mgr.save(state.step, mods, state, dict(meta, global_step=state.step))
+    saves.append((time.perf_counter() - t0, mgr.last_wait_s,
+                  mgr.last_snapshot_s, mgr.last_alloc_bytes))
+    after2 = one()
+    mgr.wait()
+    written = mgr.poll()
+    files = sorted(p.name for p in (tmp / "checkpoint").iterdir())
+    require(len(written) == 2 and len(files) == 2
+            and all(f.endswith(".npz") for f in files),
+            f"writes {written}, files {files}")
+    mib = written[0].nbytes / 2 ** 20
+    print(f"[10b] background checkpoint, flagship width, grad_accum 2, "
+          f"{mib:.0f} MiB: a synchronous save {t_sync:.2f} s; "
+          + "; ".join(f"save {i + 1} returned in {b:.3f} s (wait on the "
+                      f"write before {w:.3f}, snapshot {sn:.3f} s, "
+                      f"{a / 2 ** 20:.0f} MiB pinned allocated), writer "
+                      f"{x.seconds:.2f} s"
+                      for i, ((b, w, sn, a), x) in
+                      enumerate(zip(saves, written))))
+    print(f"    s/step: {len(quiet)} steps with no write "
+          f"{', '.join(f'{v:.3f}' for v in quiet)} (mean "
+          f"{sum(quiet) / len(quiet):.3f}); {len(overlap)} overlapping a "
+          f"write {', '.join(f'{v:.3f}' for v in overlap)} (mean "
+          f"{sum(overlap) / len(overlap):.3f}); after the second save "
+          f"{after2:.3f}")
+    print(f"    the background file equals the synchronous save before the "
+          f"{len(overlap)} steps leaf for leaf ({len(blocks['ema'])} EMA, "
+          f"{len(blocks['acc_grads'])} acc_grads leaves among "
+          f"{max(r.stop for r in blocks.values())}); the control (a save "
+          f"after them) differs in {moved}")
+    for f in (before, after, *(w.path for w in written)):
+        f.unlink()
 
 
 def _unet_launches(unet, remat: bool) -> tuple[int, int, int]:

@@ -44,12 +44,21 @@ is zero either way).
 skips the optimizer's block between.  Every leaf read is checked against
 the shape the modules give it.  The orbax layout needs orbax, which is
 JAX's: the port reads and writes the ``.npz`` layouts only.
+
+``CheckpointManager`` writes its ``ckpt_{step:010d}.npz`` files in the
+background, as the JAX one's orbax manager does (``save(wait=False)``,
+``wait()``); every other writer here is synchronous, as in JAX.  A write
+goes through ``{name}.tmp``, which no reader takes for a checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
+import threading
+import time
+import zipfile
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -180,15 +189,27 @@ def load_state_npz(path: str | os.PathLike, modules, cfg) -> dict:
             "meta": {k: int(v) for k, v in meta.items()}}
 
 
+_CKPT_NAME = re.compile(r"ckpt_(\d+)\.npz")
+
+
+def npz_steps(directory: str | os.PathLike) -> list[tuple[int, Path]]:
+    """The ``ckpt_{digits}.npz`` files in ``directory`` with their steps,
+    oldest first; other names (a write's temporary file) are not
+    checkpoints."""
+    found = ((_CKPT_NAME.fullmatch(p.name), p)
+             for p in Path(directory).glob("ckpt_*"))
+    return sorted((int(m.group(1)), p) for m, p in found if m)
+
+
 def latest_npz_step(directory: str | os.PathLike) -> int | None:
     """The newest step of the ``ckpt_{step:010d}.npz`` files in
     ``directory`` (the auto-resume), or None where there is none.  A
     directory that holds only orbax steps raises: the port reads the
     ``.npz`` layouts only."""
     d = Path(directory)
-    steps = [int(p.stem.split("_")[-1]) for p in d.glob("ckpt_*.npz")]
+    steps = npz_steps(d)
     if steps:
-        return max(steps)
+        return steps[-1][0]
     orbax = sorted(p.name for p in d.glob("*")
                    if p.is_dir() and p.name.isdigit())
     if orbax:
@@ -288,14 +309,19 @@ def _group_count(opt: torch.optim.Optimizer, name: str) -> int:
                 if g["name"] == name)
 
 
-def optimizer_tree(layout: OptLayout, state, accum: int | None = None
-                   ) -> Any:
+def optimizer_tree(layout: OptLayout, state, accum: int | None = None,
+                   tensors: bool = False) -> Any:
     """The port's optimizer state (``state.opt``; ``state.grad_accum`` and
     ``state.mini_step`` where it has them) as the optax opt_state tree of
     ``layout``, of numpy arrays (plain tuples in place of the
-    NamedTuples: the same leaves in the same order).  ``accum`` overrides
-    ``state.grad_accum``."""
+    NamedTuples: the same leaves in the same order; the tensors' leaves
+    fp32 tensors under ``tensors``, as in ``state_dict_to_flax``).
+    ``accum`` overrides ``state.grad_accum``."""
     opt = state.opt
+
+    def flax(sd):
+        return state_dict_to_flax(sd, tensors=tensors)
+
     named = _group_names(opt, layout)
     inner = {}
     for label in sorted(layout.labels):
@@ -306,8 +332,7 @@ def optimizer_tree(layout: OptLayout, state, accum: int | None = None
             mu[n] = st.get("exp_avg", torch.zeros_like(p))
             nu[n] = st.get("exp_avg_sq", torch.zeros_like(p))
         count = np.asarray(_group_count(opt, label), np.int32)
-        adam = (count, _wrap(key, state_dict_to_flax(mu)),
-                _wrap(key, state_dict_to_flax(nu)))
+        adam = (count, _wrap(key, flax(mu)), _wrap(key, flax(nu)))
         inner[label] = ((adam, (), (count,)) if label in layout.scheduled
                         else (adam, ()))
     if not layout.multi:
@@ -316,7 +341,7 @@ def optimizer_tree(layout: OptLayout, state, accum: int | None = None
     if k <= 1:
         return inner
     mid = state.mini_step > 0
-    acc = {key: _wrap(key, state_dict_to_flax({
+    acc = {key: _wrap(key, flax({
         n: p.grad if mid and p.grad is not None else torch.zeros_like(p)
         for n, p in net.named_parameters()}))
         for key, net in layout.nets.items()}
@@ -368,34 +393,58 @@ def load_optimizer_tree(layout: OptLayout, state, tree,
                       else None)
 
 
-def train_state_tree(modules, state, meta: Mapping[str, int]) -> dict:
-    """``{"meta", "state"}`` in the JAX package's layout (numpy): the
-    tree ``save_state_npz`` flattens for a ``JointTrainState``."""
-    tmpl = export_jax_params(modules)
+def train_state_tree(modules, state, meta: Mapping[str, int],
+                     tensors: bool = False) -> dict:
+    """``{"meta", "state"}`` in the JAX package's layout (numpy; under
+    ``tensors`` the tensors' leaves fp32 tensors, as in
+    ``state_dict_to_flax``): the tree ``save_state_npz`` flattens for a
+    ``JointTrainState``."""
+    tmpl = export_jax_params(modules, tensors=tensors)
     params = {k: tmpl[k] for k in ("arcface", "mapping", "sr")}
     ema = None
     if state.ema is not None:
-        ema = ({"params": state_dict_to_flax(state.ema.params)},
+        ema = ({"params": state_dict_to_flax(state.ema.params,
+                                             tensors=tensors)},
                np.asarray(state.ema.step, np.int32))
     return {"meta": {k: np.asarray(int(v), np.int64)
                      for k, v in meta.items()},
             "state": (np.asarray(state.step, np.int32), params,
                       tmpl["arcface_stats"],
-                      optimizer_tree(joint_layout(modules), state),
+                      optimizer_tree(joint_layout(modules), state,
+                                     tensors=tensors),
                       ema)}
 
 
+def _write_npz(f, arrays: Mapping[str, np.ndarray]) -> None:
+    """``np.savez(f, **arrays)`` (uncompressed members ``{name}.npy``,
+    format 1.0), each array's bytes handed to the zip member in one call
+    and never copied: the CRC and the write release the GIL for their
+    whole length, where ``np.savez`` copies every 16 MiB chunk under it
+    (a background writer then holds up the training thread)."""
+    fmt = np.lib.format
+    with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED, allowZip64=True) as z:
+        for name, a in arrays.items():
+            a = np.asarray(a, order="C")     # 0-d stays 0-d
+            with z.open(f"{name}.npy", "w", force_zip64=True) as out:
+                fmt.write_array_header_1_0(
+                    out, fmt.header_data_from_array_1_0(a))
+                out.write(a.reshape(-1).view(np.uint8))
+
+
 def save_leaves(path: str | os.PathLike, tree: Any, **named) -> Path:
-    """Write ``tree``'s leaves as ``leaf_0 …`` (``jax.tree_util``'s order,
-    the JAX package's ``save_state_npz`` layout) and the ``named`` arrays
-    into the ``.npz`` ``path``, through a temporary file, so that an
-    interrupted write leaves no half file."""
+    """Write ``tree``'s leaves (numpy arrays, or CPU tensors) as ``leaf_0
+    …`` (``jax.tree_util``'s order, the JAX package's ``save_state_npz``
+    layout) and the ``named`` arrays into the ``.npz`` ``path``, through
+    ``{path}.tmp``, so that an interrupted write leaves no half file under
+    a name that a reader of ``.npz`` files takes."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     leaves, _ = jax_tree_flatten(tree)
-    tmp = path.with_name(path.name + ".tmp.npz")
-    np.savez(tmp, **named, **{f"leaf_{i}": np.asarray(x)
-                              for i, x in enumerate(leaves)})
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        _write_npz(f, {**named, **{
+            f"leaf_{i}": x.numpy() if torch.is_tensor(x) else np.asarray(x)
+            for i, x in enumerate(leaves)}})
     os.replace(tmp, path)
     return path
 
@@ -460,32 +509,161 @@ def transfer_sr_adam_moments(modules, state, opt_npz_path
     return True
 
 
+class HostSnapshot:
+    """The host copy of a checkpoint's tensors: one flat fp32 buffer,
+    pinned where a tensor is on the card, kept and reused from one
+    snapshot to the next (a write must have finished with it before the
+    next :meth:`copy`); it grows when a tree needs more.
+
+    :meth:`copy` copies each tensor leaf into its slice on the current
+    stream (``non_blocking``) and records an event after the copies: a
+    reader waits on it before it reads a byte.  Work queued on that stream
+    after the copies (the next optimizer step, the EMA update, the
+    accumulation of ``.grad``, the reuse of a freed tensor's memory) runs
+    after them, so the snapshot holds the state as it was at ``copy``."""
+
+    def __init__(self):
+        self._buf: torch.Tensor | None = None
+        self.alloc_bytes = 0     # allocated by the last copy
+
+    def copy(self, tree: Any) -> tuple[Any, Any]:
+        """``tree`` with each tensor leaf (fp32) replaced by its host copy,
+        and the event after the copies (None where none was on the
+        card)."""
+        leaves, treedef = jax_tree_flatten(tree)
+        tensors = [x for x in leaves if torch.is_tensor(x)]
+        n = sum(t.numel() for t in tensors)
+        card = next((t.device for t in tensors if t.is_cuda), None)
+        self.alloc_bytes = 0
+        if self._buf is None or self._buf.numel() < n \
+                or self._buf.is_pinned() != (card is not None):
+            self._buf = None
+            self._buf = torch.empty(n, dtype=torch.float32,
+                                    pin_memory=card is not None)
+            self.alloc_bytes = 4 * n
+        out, at = [], 0
+        for x in leaves:
+            if torch.is_tensor(x):
+                dst = self._buf[at:at + x.numel()].view(x.shape)
+                dst.copy_(x, non_blocking=True)
+                at += x.numel()
+                x = dst
+            out.append(x)
+        ready = None
+        if card is not None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(card))
+        return jax_tree_unflatten(treedef, out), ready
+
+
+@dataclasses.dataclass(frozen=True)
+class Written:
+    """A finished background write: its step, file, the writer's seconds
+    (from its start to the rename and the rotation) and the file's
+    bytes."""
+
+    step: int
+    path: Path
+    seconds: float
+    nbytes: int
+
+
 class CheckpointManager:
     """The JAX package's numpy ``CheckpointManager`` layout:
     ``{directory}/ckpt_{step:010d}.npz`` train states, the newest
-    ``max_to_keep`` kept."""
+    ``max_to_keep`` kept.
+
+    As the JAX one's orbax manager, ``save`` writes in the background:
+    it copies every leaf of the train state off the live tensors
+    (:class:`HostSnapshot`) and returns; a writer thread turns the copy
+    into the ``.npz``, renames it into place, then rotates.  A ``save``
+    while a write is in flight first waits for it (one snapshot held at
+    a time); ``wait`` drains; ``latest_step`` and ``restore`` wait first.
+    A failed write's exception is raised from the next ``save``,
+    ``wait``, ``poll``, ``latest_step`` or ``restore``."""
 
     def __init__(self, directory: str | os.PathLike, max_to_keep: int = 5):
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = int(max_to_keep)
+        self._host = HostSnapshot()
+        self._thread: threading.Thread | None = None
+        self._outcome: Written | BaseException | None = None
+        self._done: list[Written] = []
+        # the last save's seconds blocked on the write before it, and in
+        # its snapshot (tree and copies, pinned buffers allocated), and
+        # the bytes of host buffers it allocated
+        self.last_wait_s = self.last_snapshot_s = 0.0
+        self.last_alloc_bytes = 0
 
-    def save(self, step: int, modules, state, metadata: Mapping[str, int]
-             ) -> Path:
-        path = save_train_state(npz_step_path(self.directory, step),
-                                modules, state, metadata)
-        kept = sorted(self.directory.glob("ckpt_*.npz"))
-        for old in kept[:-self.max_to_keep]:
-            old.unlink()
-        return path
+    def save(self, step: int, modules, state, metadata: Mapping[str, int],
+             wait: bool = False) -> Path:
+        t0 = time.perf_counter()
+        self.wait()
+        t1 = time.perf_counter()
+        # the leaves as views of the live tensors, then copied at once
+        tree, ready = self._host.copy(train_state_tree(
+            modules, state, metadata, tensors=True))
+        self.last_wait_s, self.last_snapshot_s = t1 - t0, \
+            time.perf_counter() - t1
+        self.last_alloc_bytes = self._host.alloc_bytes
+        self._thread = threading.Thread(
+            target=self._write, args=(int(step), tree, ready),
+            name=f"checkpoint-{step}")
+        self._thread.start()
+        if wait:
+            self.wait()
+        return npz_step_path(self.directory, step)
+
+    def _write(self, step: int, tree, ready) -> None:
+        """The writer thread: no metrics, no logging; its outcome is read
+        on the caller's thread."""
+        try:
+            t0 = time.perf_counter()
+            if ready is not None:
+                ready.synchronize()
+            path = save_leaves(npz_step_path(self.directory, step), tree)
+            for _, old in npz_steps(self.directory)[:-self.max_to_keep]:
+                old.unlink()
+            self._outcome = Written(step, path, time.perf_counter() - t0,
+                                    path.stat().st_size)
+        except BaseException as e:   # raised on the caller's thread
+            self._outcome = e
+
+    def wait(self) -> None:
+        """Block until the write in flight (if any) has finished; raise
+        its exception where it failed."""
+        if self._thread is None:
+            return
+        self._thread.join()
+        self._thread = None
+        out, self._outcome = self._outcome, None
+        if isinstance(out, BaseException):
+            raise out
+        self._done.append(out)
+
+    @property
+    def in_flight(self) -> bool:
+        """A write is still running."""
+        return self._thread is not None and self._thread.is_alive()
+
+    def poll(self) -> list[Written]:
+        """The writes finished since the last call, without waiting for
+        one in flight."""
+        if self._thread is not None and not self.in_flight:
+            self.wait()
+        done, self._done = self._done, []
+        return done
 
     def latest_step(self) -> int | None:
+        self.wait()
         return latest_npz_step(self.directory)
 
     def restore(self, step: int | None, modules, state,
                 reset_optimizer: bool = False) -> dict:
         """Resume from ``step`` (None: the newest) in place; returns the
         meta.  FileNotFoundError where there is none."""
+        self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:

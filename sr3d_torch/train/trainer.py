@@ -4,14 +4,16 @@ The port's counterpart of ``sr3d_tpu/train/trainer.py``: the joint
 datasets split 80/20 with a seed, batches decoded by ``BatchLoader``
 threads and copied to the card by ``prefetch_to_device`` while the previous
 step runs, then ``make_train_step``; logs, train visualisations,
-checkpoints, ``evaluate_MICA`` (the combined val loss, the best models) and
+checkpoints (written in the background, as the JAX Trainer's orbax
+saves are), ``evaluate_MICA`` (the combined val loss, the best models) and
 ``evaluate`` (PSNR/SSIM, mesh exports) each on their own cadence; a final
-checkpoint; resume from the newest checkpoint, a step, a train-state
-``.npz`` or a converted UNet.  The files have the JAX Trainer's names and
-layouts (``checkpoint/ckpt_{step:010d}.npz``, ``best_model.npz`` and
-``.txt``, ``best_models/best_model_{0,1,3}.npz``,
-``results/step_N/<name>/``, ``val_metrics.jsonl``, ``logs/``), so a run
-moves between the two packages in either direction.
+checkpoint, and the wait for its write; resume from the newest
+checkpoint, a step, a train-state ``.npz`` or a converted UNet.  The files
+have the JAX Trainer's names and layouts
+(``checkpoint/ckpt_{step:010d}.npz``, ``best_model.npz`` and ``.txt``,
+``best_models/best_model_{0,1,3}.npz``, ``results/step_N/<name>/``,
+``val_metrics.jsonl``, ``logs/``), so a run moves between the two
+packages in either direction.
 
 Unlike the JAX Trainer:
 
@@ -59,7 +61,6 @@ from .checkpoint import (
     load_arcface_npz,
     load_leaves_into,
     load_train_state,
-    npz_step_path,
     save_train_state,
     transfer_sr_adam_moments,
 )
@@ -298,7 +299,9 @@ class Trainer:
         ``.npz`` file: a train state (the port's or the JAX package's), or
         else a converted reference UNet (the SR branch only).  Returns
         False where there is nothing to resume.  Under a model axis the
-        whole file is read, then split."""
+        whole file is read, then split.  A checkpoint still being written
+        is waited for first, on every rank."""
+        self.wait_checkpoints()
         with unsharded(self.modules, self.state):
             return self._load_checkpoint(path_or_step)
 
@@ -350,16 +353,41 @@ class Trainer:
             self.global_step, prefix="perf/")
 
     def save_checkpoint(self) -> None:
+        """Save ``checkpoint/ckpt_{step:010d}.npz`` in the background, as
+        the JAX Trainer does: the state is copied inside ``unsharded``
+        (whole weights, before the split reassigns them), rank 0's writer
+        thread writes the file, and every rank goes on once the copy is
+        taken.  Logs the seconds it blocked (``perf/ckpt_snapshot_s``; of
+        them ``perf/ckpt_wait_s`` on the write before it)."""
         t0 = time.perf_counter()
         with unsharded(self.modules, self.state):
-            self._written(
-                self.ckpt.save, self.global_step, self.modules, self.state,
-                {"global_step": self.global_step, "epoch": self.epoch})
-        path = npz_step_path(self.ckpt_dir, self.global_step)
+            self._written(self.ckpt.save, self.global_step, self.modules,
+                          self.state, self._meta())
+        self._sync()
         self._saved_step = self.global_step
-        self._log_io("ckpt_write", time.perf_counter() - t0, path)
-        if self.cfg.get("log_wandb_ckpt"):
-            self.metrics_writer.log_checkpoint([str(path)], self.global_step)
+        self.metrics_writer.add_scalars(
+            {"ckpt_snapshot_s": time.perf_counter() - t0,
+             "ckpt_wait_s": self.ckpt.last_wait_s},
+            self.global_step, prefix="perf/")
+        self._log_writes()
+
+    def wait_checkpoints(self) -> None:
+        """Every rank returns once rank 0's checkpoint write in flight
+        has finished (its failure raised on rank 0)."""
+        self._written(self.ckpt.wait)
+        self._log_writes()
+
+    def _log_writes(self) -> None:
+        """The finished background writes' ``perf/ckpt_write_s`` and
+        ``perf/ckpt_write_mib`` (and their wandb registration), at each
+        one's step; a failed write raises."""
+        for w in self.ckpt.poll():
+            self.metrics_writer.add_scalars(
+                {"ckpt_write_s": w.seconds,
+                 "ckpt_write_mib": w.nbytes / 2 ** 20},
+                w.step, prefix="perf/")
+            if self.cfg.get("log_wandb_ckpt"):
+                self.metrics_writer.log_checkpoint([str(w.path)], w.step)
 
     def load_sr_pretrained(self, prefix: str) -> bool:
         """Warm-start the SR branch from an SR-only checkpoint pair
@@ -534,6 +562,7 @@ class Trainer:
                                                     prefix="train/")
                     self.metrics_writer.add_scalar(
                         "train/sec_per_it", dt, self.global_step)
+                    self._log_writes()
                 if vis is not None and vis_steps \
                         and self.global_step % vis_steps == 0:
                     try:
@@ -554,6 +583,7 @@ class Trainer:
             st["loop_s"] += time.perf_counter() - t_loop
         if self._saved_step != self.global_step:
             self.save_checkpoint()
+        self.wait_checkpoints()   # drain the background write, as JAX's
         self.metrics_writer.add_scalars(
             {k: v for k, v in st.items() if k.endswith("_s")},
             self.global_step, prefix="perf/")

@@ -81,39 +81,52 @@ def load_jax_ema(tree: Mapping[str, Any], step: int,
 
 
 def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
-                       shapes_only: bool = False) -> dict:
+                       shapes_only: bool = False, tensors: bool = False
+                       ) -> dict:
     """Dotted ``state_dict`` keys → a nested flax-layout tree of numpy
     arrays: ``weight`` → ``kernel`` (OIHW → HWIO, ``[out, in]`` →
     ``[in, out]``), other leaves as they are.  ``shapes_only``: each leaf
     is a zero-strided fp32 array of the leaf's shape (no copy; the tensors
-    may be on the ``meta`` device)."""
+    may be on the ``meta`` device).  ``tensors``: each leaf is the fp32
+    tensor in the flax layout, a view on the tensor's device where it is
+    fp32 already (no copy; a checkpoint snapshot copies them at once)."""
     out: dict = {}
     for key, t in sd.items():
         *path, name = key.split(".")
         if shapes_only:
             a = np.broadcast_to(np.float32(0), tuple(t.shape))
+        elif tensors:
+            a = t.detach().float()
         else:
             a = t.detach().float().cpu().numpy()
         if name == "weight":
             name = "kernel"
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            if a.ndim == 4:
+                a = (a.permute(2, 3, 1, 0) if torch.is_tensor(a)
+                     else a.transpose(2, 3, 1, 0))
+            else:
+                a = a.T
         node = out
         for part in path:
             node = node.setdefault(part, {})
-        node[name] = a if shapes_only else np.ascontiguousarray(a)
+        node[name] = (a if shapes_only or tensors
+                      else np.ascontiguousarray(a))
     return out
 
 
-def export_jax_params(modules) -> dict:
+def export_jax_params(modules, tensors: bool = False) -> dict:
     """The inverse of ``load_jax_params``: ``{"sr": {"params": …},
     "arcface": …, "arcface_stats": …, "mapping": {"params": …}}`` as
-    numpy, the JAX package's joint layout."""
+    numpy (or fp32 tensors: :func:`state_dict_to_flax`), the JAX
+    package's joint layout."""
     af = modules.arcface
+
+    def flax(named):
+        return state_dict_to_flax(dict(named), tensors=tensors)
+
     return {
-        "sr": {"params": state_dict_to_flax(dict(
-            modules.unet.named_parameters()))},
-        "arcface": state_dict_to_flax(dict(af.named_parameters())),
-        "arcface_stats": state_dict_to_flax(dict(af.named_buffers())),
-        "mapping": {"params": state_dict_to_flax(dict(
-            modules.mapping.named_parameters()))},
+        "sr": {"params": flax(modules.unet.named_parameters())},
+        "arcface": flax(af.named_parameters()),
+        "arcface_stats": flax(af.named_buffers()),
+        "mapping": {"params": flax(modules.mapping.named_parameters())},
     }

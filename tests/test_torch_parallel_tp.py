@@ -215,6 +215,24 @@ def test_tp_joint_step_matches_one_device(world):
     _ckpt_close(root / "tp.npz", root / "one.npz", steps=1)
 
 
+def test_tp_background_checkpoint_is_the_state_at_save(world):
+    """Rank 0's background checkpoint, its copy taken inside
+    ``unsharded`` and its write held until one more step ran on the
+    shards, equals the synchronous save of the same state leaf for
+    leaf."""
+    root, _, _ = world
+    assert all(out["held"] for out in _all(root, "tp_step"))
+    a = tc.npz_leaves(root / "tp.npz")
+    b = tc.npz_leaves(root / "tp_async" / "ckpt_0000000001.npz")
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.dtype == y.dtype, i
+        np.testing.assert_array_equal(x, y, err_msg=f"leaf {i}")
+    # the control: the state one step on differs (the step changed it)
+    assert any(not np.array_equal(x, y) for x, y in zip(a, tc.npz_leaves(
+        root / "tp_next.npz")))
+
+
 def test_one_device_checkpoint_resharded_under_tp(world):
     """The reverse: a one-device checkpoint read under dp2×tp2 is split
     (every split weight keeps its shard's shape) and written back from

@@ -401,6 +401,33 @@ def tp_step(inputs, root):
             tc.save_train_state(root / "tp.npz", mods, state,
                                 {"global_step": 1, "epoch": 0})
     dist.barrier()
+    # the same state written in the background by rank 0, as the Trainer
+    # saves: the copy is taken inside the block (the split after it
+    # reassigns the weights), the writer held until one more step has run
+    # in place on the shards
+    import threading
+
+    gate, write = threading.Event(), tc.save_leaves
+    tc.save_leaves = lambda *a, **k: gate.wait(60) and write(*a, **k)
+    try:
+        mgr = tc.CheckpointManager(root / "tp_async")
+        with par.unsharded(mods, state):
+            if dist.get_rank() == 0:
+                path = mgr.save(1, mods, state,
+                                {"global_step": 1, "epoch": 0})
+        held = dist.get_rank() != 0 or not path.exists()
+        dist.barrier()
+        state, _ = step(mods, state, inputs["joint_batch"],
+                        draws=inputs["joint_draws"])
+        gate.set()
+        mgr.wait()
+    finally:
+        tc.save_leaves = write
+    with par.unsharded(mods, state):
+        if dist.get_rank() == 0:
+            tc.save_train_state(root / "tp_next.npz", mods, state,
+                                {"global_step": 1, "epoch": 0})
+    dist.barrier()
     # the reverse: a one-device file read under the mesh, then written
     # back from the shards
     fresh = joint_modules(inputs)
@@ -417,7 +444,7 @@ def tp_step(inputs, root):
                                 {"global_step": 1, "epoch": 0})
     dist.barrier()
     return {"metrics": met, "split": split,
-            "reshard": shard_shapes == after}
+            "reshard": shard_shapes == after, "held": held}
 
 
 @scenario
