@@ -275,7 +275,7 @@ def kernels_ms(fn, reps: int = 20) -> float:
     microseconds between kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sr3d_torch.profile_serving import _device_us
+    from sr3d_torch.profile_train import _device_us
 
     for _ in range(3):
         fn()
@@ -2013,6 +2013,7 @@ def phase_cli(dev, ckpt: Path, tmp: Path) -> tuple[dict, dict]:
     from sr3d_torch.kernels import launch_counts, reset_launch_counts
     from sr3d_torch.ops.image import tensor_to_uint8
     from sr3d_torch.ops.quant import Int8Conv
+    from sr3d_torch.profile_train import _kernels
     from sr3d_torch.serve import Predictor, apply_serving_flags, main
 
     lr_dir = tmp / "lr"
@@ -2087,9 +2088,7 @@ def phase_cli(dev, ckpt: Path, tmp: Path) -> tuple[dict, dict]:
             with torch.profiler.profile(activities=acts) as prof:
                 unet(x, t, quant=mode == "int8")
                 torch.cuda.synchronize()
-        fwd_launches[mode] = sum(
-            e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+        fwd_launches[mode] = sum(e.count for e in _kernels(prof))
     print(f"    kernel launches of one UNet forward at batch 8: int8 "
           f"{fwd_launches['int8']}, bf16 {fwd_launches['bf16']}")
     quantizes = Int8Conv.weight_quantizes
@@ -2532,7 +2531,7 @@ def _profiled_sr_step(m, dev, hi: int) -> tuple[tuple, tuple]:
     calls, host ms, % of the profiled step))."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sr3d_torch.profile_serving import _device_us
+    from sr3d_torch.profile_train import _device_us, _kernels
 
     st = m.init_state()
     step = m.make_train_step()
@@ -2554,11 +2553,8 @@ def _profiled_sr_step(m, dev, hi: int) -> tuple[tuple, tuple]:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t_prof = one(3)
-    ranges = ("gn_swish.backward", "spatial_attention.backward")
     ev = prof.key_averages()
-    kernel_us = sum(_device_us(e) for e in ev
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.key not in ranges)
+    kernel_us = sum(_device_us(e) for e in _kernels(prof))
     gb = [e for e in ev if e.key == "gn_swish.backward"
           and e.device_type == torch.autograd.DeviceType.CPU]
     require(gb, "no gn_swish.backward range in the profile")

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.image import clip
 from ..parallel import layout
+from ..utils.profiling import annotate
 from .schedules import DiffusionSchedule
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -260,9 +261,10 @@ def _run_steps(step: Callable[..., torch.Tensor], img: torch.Tensor,
         return img
 
     for k0 in range(0, n, chunk):
-        zs = [draw() for _ in range(chunk)]
-        img = (checkpoint(run, k0, img, *zs, use_reentrant=False) if ckpt
-               else run(k0, img, *zs))
+        with annotate("sr3d.step", k=k0):
+            zs = [draw() for _ in range(chunk)]
+            img = (checkpoint(run, k0, img, *zs, use_reentrant=False)
+                   if ckpt else run(k0, img, *zs))
     return img
 
 
@@ -419,35 +421,38 @@ def dpmpp_sample_loop(denoise: DenoiseFn, sched: DiffusionSchedule,
     eta32, one = f32(eta), f32(1.0)
     d_prev, lam_prev = None, f32(0.0)
     for i in range(num_steps - 1, -1, -1):
-        t = int(taus[i])
-        t_prev = int(taus[i - 1]) if i > 0 else -1
-        d, _ = x0_eps(img, t)
-        a_c = sched.alphas_cumprod[t]
-        a_p = sched.alphas_cumprod[t_prev] if t_prev >= 0 else one
-        alpha_c, sigma_c = np.sqrt(a_c), np.sqrt(one - a_c)
-        alpha_p = np.sqrt(a_p)
-        sigma_p = np.sqrt(np.maximum(one - a_p, f32(0.0)))
-        e_neg_h = (alpha_c * sigma_p) / (alpha_p * sigma_c)
-        lam_c = np.log(alpha_c / sigma_c)
-        h = np.maximum(-np.log(np.maximum(e_neg_h, f32(1e-38))), f32(1e-12))
-        r = np.maximum((lam_c - lam_prev) / h, f32(1e-6))
-        use_2nd = d_prev is not None and t_prev >= 0
-        if eta == 0.0:
-            d_eff = d + (d - d_prev) / float(f32(2.0) * r) if use_2nd else d
-            img = (float(sigma_p / sigma_c) * img
-                   + float(alpha_p * (one - e_neg_h)) * d_eff)
-        else:
-            c = (one + eta32) * h
-            e_neg_c = e_neg_h ** (one + eta32)
-            d_term = float(one - e_neg_c) * d
-            if use_2nd:
-                d_term = d_term + float((one - (one - e_neg_c) / c) / r) \
-                    * (d - d_prev)
-            z = draw()
-            img = (float(sigma_p / sigma_c * e_neg_h ** eta32) * img
-                   + float(alpha_p) * d_term)
-            if t_prev >= 0:
-                img = img + float(sigma_p * np.sqrt(np.maximum(
-                    one - e_neg_h ** (f32(2.0) * eta32), f32(0.0)))) * z
-        d_prev, lam_prev = d, lam_c
+        with annotate("sr3d.step", k=num_steps - 1 - i):
+            t = int(taus[i])
+            t_prev = int(taus[i - 1]) if i > 0 else -1
+            d, _ = x0_eps(img, t)
+            a_c = sched.alphas_cumprod[t]
+            a_p = sched.alphas_cumprod[t_prev] if t_prev >= 0 else one
+            alpha_c, sigma_c = np.sqrt(a_c), np.sqrt(one - a_c)
+            alpha_p = np.sqrt(a_p)
+            sigma_p = np.sqrt(np.maximum(one - a_p, f32(0.0)))
+            e_neg_h = (alpha_c * sigma_p) / (alpha_p * sigma_c)
+            lam_c = np.log(alpha_c / sigma_c)
+            h = np.maximum(-np.log(np.maximum(e_neg_h, f32(1e-38))),
+                           f32(1e-12))
+            r = np.maximum((lam_c - lam_prev) / h, f32(1e-6))
+            use_2nd = d_prev is not None and t_prev >= 0
+            if eta == 0.0:
+                d_eff = (d + (d - d_prev) / float(f32(2.0) * r) if use_2nd
+                         else d)
+                img = (float(sigma_p / sigma_c) * img
+                       + float(alpha_p * (one - e_neg_h)) * d_eff)
+            else:
+                c = (one + eta32) * h
+                e_neg_c = e_neg_h ** (one + eta32)
+                d_term = float(one - e_neg_c) * d
+                if use_2nd:
+                    d_term = d_term + float((one - (one - e_neg_c) / c) / r) \
+                        * (d - d_prev)
+                z = draw()
+                img = (float(sigma_p / sigma_c * e_neg_h ** eta32) * img
+                       + float(alpha_p) * d_term)
+                if t_prev >= 0:
+                    img = img + float(sigma_p * np.sqrt(np.maximum(
+                        one - e_neg_h ** (f32(2.0) * eta32), f32(0.0)))) * z
+            d_prev, lam_prev = d, lam_c
     return img

@@ -75,6 +75,7 @@ from ..kernels.groupnorm_swish import (gn_mean_scale, gn_stats, gn_swish,
 from ..ops.quant import Int8Conv, Versioned, gn_static_scale
 from ..parallel import layout
 from ..parallel.collectives import all_gather, all_reduce_sum
+from ..utils.profiling import annotate
 from .layers import Conv2d, Linear
 
 
@@ -400,6 +401,13 @@ class SR3UNet(nn.Module):
         the mode is by then.  ``quant`` runs the convs that
         ``quant_min_res`` / ``quant_resample`` select in int8 (serving
         only: rounding has no gradient)."""
+        with annotate("sr3d.unet"):
+            return self._forward(x, time, generator, deterministic, remat,
+                                 quant)
+
+    def _forward(self, x: torch.Tensor, time: torch.Tensor,
+                 generator: torch.Generator | None, deterministic: bool,
+                 remat: bool | None, quant: bool) -> torch.Tensor:
         in_dtype = x.dtype
         drop = self.training and not deterministic and self.dropout > 0.0
         if drop and generator is None:

@@ -47,10 +47,61 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .profile_serving import _device_us, _summarise
-
 ROOT = Path(__file__).resolve().parents[1]
 RANGES = ("gn_swish.backward", "spatial_attention.backward")
+GROUPS = (("gn_swish one-pass (port)", ("gn_swish_onepass_kernel",)),
+          ("gn_stats (port)", ("gn_stats_kernel",)),
+          ("gn_swish apply (port)", ("gn_swish_apply_kernel",)),
+          ("attention (port)", ("attn_mma_kernel", "attn_tiled_kernel")),
+          ("cuDNN NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
+          ("convolution (cuDNN)", ("conv", "xmma", "implicit", "cutlass",
+                                   "sm90", "gemm", "winograd")),
+          ("fp32->bf16 casts", ("bfloat16_copy",)),
+          ("elementwise / copy", ("elementwise", "copy", "cat", "fill",
+                                  "reduce", "index", "upsample")))
+
+
+def _device_us(evt) -> float:
+    v = getattr(evt, "self_device_time_total", None)
+    return float(v if v is not None else evt.self_cuda_time_total)
+
+
+def _kernels(prof) -> list:
+    """The device-side entries of ``prof.key_averages()`` that are device
+    work: the device-side shadows of named ranges (``RANGES`` and the
+    program's ``sr3d.*`` spans) left out."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in RANGES and not e.key.startswith("sr3d.")]
+
+
+def _summarise(prof, wall_s: float, label: str) -> None:
+    """Device time by kernel group over ``wall_s``."""
+    kernels = _kernels(prof)
+    total_us = sum(_device_us(e) for e in kernels)
+    by_group = {name: 0.0 for name, _ in GROUPS}
+    by_group["other"] = 0.0
+    for e in kernels:
+        key = e.key.lower()
+        for name, pats in GROUPS:
+            if any(p in key for p in pats):
+                by_group[name] += _device_us(e)
+                break
+        else:
+            by_group["other"] += _device_us(e)
+    # wall_s is measured without the profiler, whose own overhead would
+    # stretch the host side
+    busy = total_us / 1e3 / (wall_s * 1e3)
+    print(f"  {label}: wall {wall_s * 1e3:.2f} ms, device busy "
+          f"{total_us / 1e3:.2f} ms ({100 * busy:.1f}% of wall), "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    for name, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"    {name:24s} {us / 1e3:8.3f} ms "
+              f"({100 * us / max(total_us, 1e-9):5.1f}% of device time)")
+    top = sorted(kernels, key=lambda e: -_device_us(e))[:8]
+    for e in top:
+        print(f"      {_device_us(e) / 1e3:8.3f} ms x{e.count:5d}  "
+              f"{e.key[:90]}")
 
 
 def _timed(fn) -> tuple[float, object]:
@@ -146,13 +197,11 @@ def main() -> None:
         t_prof, _ = _timed(one_step)
     # busy share against the wall without the profiler, which slows the
     # host; the ranges' host shares against the profiled wall
-    _summarise(prof, t_step, "one model3 step", RANGES)
+    _summarise(prof, t_step, "one model3 step")
     print(f"  the profiled step: {t_prof:.3f} s host wall")
     cpu_side = torch.autograd.DeviceType.CPU
     events = prof.key_averages()
-    total_us = sum(_device_us(e) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.key not in RANGES)
+    total_us = sum(_device_us(e) for e in _kernels(prof))
     for name in RANGES:
         hits = [e for e in events
                 if e.key == name and e.device_type == cpu_side]
@@ -177,9 +226,7 @@ def _profiled(fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         wall, _ = _timed(fn)
     events = prof.key_averages()
-    kernel_us = sum(_device_us(e) for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.key not in RANGES)
+    kernel_us = sum(_device_us(e) for e in _kernels(prof))
     hits = [e for e in events if e.key == "gn_swish.backward"
             and e.device_type == torch.autograd.DeviceType.CPU]
     out = {"profiled_s": wall, "busy_pct": 100 * kernel_us / 1e6 / wall,

@@ -19,6 +19,7 @@ for it (the CLI's default).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from pathlib import Path
@@ -45,6 +46,7 @@ from .utils.bridge import (
     load_jax_ema,
     load_jax_params,
 )
+from .utils.profiling import annotate, trace
 
 
 class Predictor:
@@ -172,14 +174,15 @@ class Predictor:
     def _prep_cond(self, lr_imgs: np.ndarray) -> torch.Tensor:
         """uint8 or [−1, 1] NHWC LR batch → the bicubic-upsampled
         conditioning on the device."""
-        x = np.asarray(lr_imgs)
-        if x.dtype == np.uint8:
-            x = x.astype(np.float32) / 127.5 - 1.0
-        x = torch.from_numpy(np.asarray(x, np.float32)).to(
-            self.modules.device)
-        if x.shape[1] != self.hr:
-            x = resize(x, self.hr, self.hr, "bicubic", antialias=False)
-        return x
+        with annotate("sr3d.prep"):
+            x = np.asarray(lr_imgs)
+            if x.dtype == np.uint8:
+                x = x.astype(np.float32) / 127.5 - 1.0
+            x = torch.from_numpy(np.asarray(x, np.float32)).to(
+                self.modules.device)
+            if x.shape[1] != self.hr:
+                x = resize(x, self.hr, self.hr, "bicubic", antialias=False)
+            return x
 
     def predict(self, lr_imgs: np.ndarray,
                 generator: torch.Generator | None = None) -> dict:
@@ -188,6 +191,13 @@ class Predictor:
 
         Returns numpy ``{"sr_u8" [N, hr, hr, 3] uint8, "verts" [N, V, 3],
         "lmk68" [N, 68, 3], "identity" [N, n_shape]}``."""
+        n = len(lr_imgs)
+        with annotate("sr3d.request", faces=n,
+                      chunks=-(-n // self.batch_size)):
+            return self._predict(lr_imgs, generator)
+
+    def _predict(self, lr_imgs: np.ndarray,
+                 generator: torch.Generator | None) -> dict:
         if np.size(lr_imgs) == 0:
             nv = self.modules.flame.n_vertices
             ns = int(self.cfg.mica.model.n_shape)
@@ -215,8 +225,9 @@ class Predictor:
                 "lmk68": out["lmk68"][:keep],
                 "identity": out["identity"][:keep],
             })
-        return {k: torch.cat([o[k] for o in outs]).cpu().numpy()
-                for k in outs[0]}
+        with annotate("sr3d.fetch"):
+            return {k: torch.cat([o[k] for o in outs]).cpu().numpy()
+                    for k in outs[0]}
 
     def export(self, lr_imgs: np.ndarray, out_dir: str,
                names: list[str] | None = None) -> int:
@@ -289,9 +300,11 @@ def main(argv=None, *, device: str | torch.device | None = None) -> int:
 
     ``python -m sr3d_torch.serve -c <cfg.yml> [-ckt best_model.npz]
     --input <lr_dir> --out <dst> [--sampler dpm++] [--steps 25]
-    [--batch 8] [--ema] [--int8 MIN_RES] [--[no-]int8-resample]``
+    [--batch 8] [--ema] [--int8 MIN_RES] [--[no-]int8-resample]
+    [--profile DIR]``
 
-    The flags and defaults of ``python -m sr3d_tpu.serve``.  ``device`` is
+    The flags and defaults of ``python -m sr3d_tpu.serve``, and
+    ``--profile DIR`` (``utils.profiling.trace``).  ``device`` is
     for callers in Python (the tests pass ``"cpu"``); the default is the
     GPU."""
     import argparse
@@ -332,6 +345,10 @@ def main(argv=None, *, device: str | torch.device | None = None) -> int:
                          "--no-int8-resample keeps them fp")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--ema", action="store_true")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the serving, "
+                         "with the program's spans, to DIR (trace.json, "
+                         "spans.json, key_averages.txt)")
     ap.add_argument("--warmup-cache", default=None, metavar="DIR",
                     help="accepted for the JAX package's CLI and ignored: it "
                          "names XLA's persistent compile cache, which has "
@@ -352,7 +369,8 @@ def main(argv=None, *, device: str | torch.device | None = None) -> int:
                                       batch_size=int(args.batch),
                                       use_ema=bool(args.ema), device=device)
     t0 = time.perf_counter()
-    n = predictor.export(imgs, args.out, names=names)
+    with trace(args.profile) if args.profile else contextlib.nullcontext():
+        n = predictor.export(imgs, args.out, names=names)
     dt = time.perf_counter() - t0
     print(f"served {n} faces -> {args.out} in {dt:.1f}s "
           f"({n / max(dt, 1e-9):.2f} faces/s incl. export)")

@@ -59,6 +59,7 @@ from ..models.networks import define_g
 from ..models.sr3_unet import SR3UNet
 from ..ops.image import sr_to_mica_inputs
 from ..parallel.layout import average_gradients
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -650,9 +651,11 @@ def make_val_step(use_ema: bool = False, int8: bool | None = None,
         sr = final.permute(0, 2, 3, 1)
         img224, blob = sr_to_mica_inputs(sr, image_size=modules.image_size,
                                          blob_size=modules.blob_size)
-        verts, code = decode_mica(modules, encode_mica(modules, blob))
+        with annotate("sr3d.mica"):
+            verts, code = decode_mica(modules, encode_mica(modules, blob))
+            lmk68 = compute_landmarks(modules.flame, verts)
         out = {"sr": sr, "img224": img224, "identity": code, "verts": verts,
-               "lmk68": compute_landmarks(modules.flame, verts)}
+               "lmk68": lmk68}
         if "flame_shape" in batch:
             gt = gt_flame_vertices(modules, batch["flame_shape"].to(
                 modules.device, torch.float32))

@@ -890,3 +890,101 @@ def test_sr_only_step_on_the_card_matches_the_cpu(cuda, which):
         assert float(d.max()) <= 2 * lr + 1e-6, n
         off, total = off + int((d > 1e-5).sum()), total + d.numel()
     assert off <= 0.01 * total, f"{off} of {total}"
+
+
+def _traced_predictor():
+    """A DDIM-4 Predictor of the tiny config on the card, warmed up, and a
+    request of 3 faces for it."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    from sr3d_torch.serve import Predictor
+
+    cfg = update_cfg(get_cfg_defaults(), str(
+        Path(__file__).resolve().parents[1] / "configs"
+        / "tiny_8_16_model2.yml"))
+    cfg.mica.model.arcface_layers = [1, 1, 1, 1]
+    cfg.sr.model.diffusion.sampler = "ddim"
+    cfg.sr.model.diffusion.ddim_steps = 4
+    p = Predictor.from_config(cfg, init_seed=3, batch_size=2,
+                              device="cuda")
+    lr = np.random.RandomState(0).randint(0, 255, (3, 8, 8, 3), np.uint8)
+    p.predict(lr)
+    return p, lr
+
+
+def _profiled_events(fn, activities, tmp_path) -> list:
+    import json
+
+    from torch.profiler import profile
+
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / f"trace{len(list(tmp_path.iterdir()))}.json"
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def test_spans_map_onto_the_trace_clock_within_50us(cuda, tmp_path):
+    """The marker launches place the program's spans on the profiler's
+    clock to within 50 µs; in a trace that records the host too, each
+    span's own ``record_function`` range, opened just after the span's
+    clock read, starts after the mapped start (less that error), by 50 µs
+    at the median."""
+    from torch.profiler import ProfilerActivity
+
+    from sr3d_torch.utils import profiling
+
+    p, lr = _traced_predictor()
+    profiling.take_spans()
+    events = _profiled_events(
+        lambda: [p.predict(lr) for _ in range(3)],
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA], tmp_path)
+    spans = profiling.take_spans()
+    launches = profiling.marker_launches(events)
+    assert len(launches) == 6                    # 3 requests, 2 markers
+    offset, error = profiling.clock_offset(launches, spans)
+    assert error <= 50.0
+    lags = []
+    for name in {s.name for s in spans}:
+        mine = sorted(s.start_ns / 1e3 + offset for s in spans
+                      if s.name == name)
+        ranges = sorted(e["ts"] for e in events
+                        if e.get("cat") == "user_annotation"
+                        and e["name"] == name)
+        assert len(mine) == len(ranges), name
+        lags += [b - a for a, b in zip(mine, ranges)]
+    assert min(lags) >= -error and sorted(lags)[len(lags) // 2] <= 50.0
+
+
+def test_spans_add_no_synchronising_call(cuda, tmp_path, monkeypatch):
+    """A request traced on the device alone makes as many synchronising
+    API calls with its spans recorded as without."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity
+
+    from sr3d_torch.utils import profiling
+
+    def syncs(events):
+        return sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and ("Synchronize" in e["name"]
+                        or e["name"] == "cudaMemcpy") for e in events)
+
+    p, lr = _traced_predictor()
+    profiling.take_spans()
+    on = _profiled_events(lambda: p.predict(lr), [ProfilerActivity.CUDA],
+                          tmp_path)
+    # the request, its prep and fetch, 2 chunks × 4 steps and UNet
+    # forwards, 2 MICA branches
+    assert len(profiling.take_spans()) == 21
+    monkeypatch.setattr(profiling, "_prof",
+                        SimpleNamespace(_is_profiler_enabled=False))
+    off = _profiled_events(lambda: p.predict(lr), [ProfilerActivity.CUDA],
+                           tmp_path)
+    assert profiling.take_spans() == []
+    assert syncs(on) == syncs(off) > 0
