@@ -1,0 +1,17 @@
+"""The share of the device slice's UNet forwards (the program's
+``sr3d.unet`` spans) that replayed a CUDA graph of the forward (their
+``graph`` attribute is ``replay``), in %.  None where the spans carry no
+``graph`` attribute (a program that runs every forward eagerly)."""
+
+from benchmark.program_spans import placed
+
+
+def read(rec):
+    found = placed(rec)
+    if not found:
+        return None
+    modes = [s.attrs.get("graph") for s, _, _ in found
+             if s.name == "sr3d.unet"]
+    if not modes or None in modes:
+        return None
+    return 100.0 * modes.count("replay") / len(modes)

@@ -76,6 +76,7 @@ from ..ops.quant import Int8Conv, Versioned, gn_static_scale
 from ..parallel import layout
 from ..parallel.collectives import all_gather, all_reduce_sum
 from ..utils.profiling import annotate
+from .forward_graph import ForwardGraphs
 from .layers import Conv2d, Linear
 
 
@@ -314,6 +315,10 @@ class SR3UNet(nn.Module):
 
     time_name = "noise_level_mlp"
     resnet: type[nn.Module] = ResnetBlock
+    # forwards of every instance, by how they ran (``forward``)
+    graph_captures = 0
+    graph_replays = 0
+    eager_calls = 0
 
     @staticmethod
     def time_embedding(dim: int, dtype: torch.dtype) -> nn.Module:
@@ -373,6 +378,9 @@ class SR3UNet(nn.Module):
                 self._add("upsample", f"upsample_{ind}", Upsample(ch, dtype))
                 now_res *= 2
         self.final_conv = ConvBlock(ch, out_channel, g, dtype)
+        self._tp_layers = tuple(m for m in self.modules()
+                                if isinstance(m, (Conv2d, Linear)))
+        self._graphs = ForwardGraphs(self)
 
     def _add(self, kind: str, name: str, module: nn.Module) -> None:
         self.add_module(name, module)
@@ -400,10 +408,44 @@ class SR3UNet(nn.Module):
         fixes it, so that the recompute runs as the forward did whatever
         the mode is by then.  ``quant`` runs the convs that
         ``quant_min_res`` / ``quant_resample`` select in int8 (serving
-        only: rounding has no gradient)."""
-        with annotate("sr3d.unet"):
+        only: rounding has no gradient).
+
+        Where ``_graph_key`` allows, the forward is a CUDA graph
+        (``models/forward_graph.py``): a signature's first call runs
+        eagerly, its second captures the graph and replays it, later ones
+        replay it, each bit-equal to the eager forward.  Each call counts
+        in ``eager_calls``, ``graph_captures`` or ``graph_replays``, and
+        its ``sr3d.unet`` span's ``graph`` says which."""
+        key = self._graph_key(x, time, deterministic, quant)
+        mode, g = ("eager", None) if key is None else self._graphs.lookup(key)
+        with annotate("sr3d.unet", graph=mode):
+            if mode == "replay":
+                SR3UNet.graph_replays += 1
+                return self._graphs.replay(g, (x, time))
+            if mode == "capture":
+                SR3UNet.graph_captures += 1
+                return self._graphs.capture(g, lambda x, t: self._forward(
+                    x, t, None, True, False, quant), (x, time))
+            SR3UNet.eager_calls += 1
             return self._forward(x, time, generator, deterministic, remat,
                                  quant)
+
+    def _graph_key(self, x: torch.Tensor, time: torch.Tensor,
+                   deterministic: bool, quant: bool) -> tuple | None:
+        """The input signature under which this call may replay a CUDA
+        graph of the forward, or None where it runs eagerly: off CUDA,
+        with grad enabled (training, model3's hand-off), with dropout
+        drawn, where a collective runs inside the forward (a layout with
+        axes, a tensor-parallel layer), or inside another capture."""
+        if not (x.is_cuda and not torch.is_grad_enabled()
+                and not (self.training and not deterministic
+                         and self.dropout > 0.0)
+                and not layout.current().axes()
+                and all(m.tp is None for m in self._tp_layers)
+                and not torch.cuda.is_current_stream_capturing()):
+            return None
+        return (x.shape, x.stride(), x.dtype, x.device, time.shape,
+                time.stride(), time.dtype, quant)
 
     def _forward(self, x: torch.Tensor, time: torch.Tensor,
                  generator: torch.Generator | None, deterministic: bool,

@@ -63,20 +63,31 @@ class Versioned:
         self._key: list | None = None
         self._value = None
 
+    @staticmethod
+    def key(tensors) -> list:
+        """What ``same`` compares: each tensor, a view that keeps its
+        storage allocated, and its version."""
+        return [(t, t.detach(), t._version) for t in tensors]
+
+    @staticmethod
+    def same(key: list | None, tensors) -> bool:
+        """Whether ``tensors`` are the objects ``key`` was made from, on
+        the same storage and unwritten since."""
+        return (key is not None and len(key) == len(tensors)
+                and all(src is t and view.data_ptr() == t.data_ptr()
+                        and ver == t._version
+                        for (src, view, ver), t in zip(key, tensors)))
+
     def __call__(self, *tensors: torch.Tensor):
         if any(t.is_inference() for t in tensors):
             # inference tensors keep no version: nothing to key on
             self.computes += 1
             with torch.no_grad():
                 return self.make(*tensors)
-        key = self._key
-        if (key is None or len(key) != len(tensors)
-                or any(src is not t or view.data_ptr() != t.data_ptr()
-                       or ver != t._version
-                       for (src, view, ver), t in zip(key, tensors))):
+        if not self.same(self._key, tensors):
             with torch.no_grad():
                 self._value = self.make(*tensors)
-            self._key = [(t, t.detach(), t._version) for t in tensors]
+            self._key = self.key(tensors)
             self.computes += 1
         return self._value
 

@@ -988,3 +988,215 @@ def test_spans_add_no_synchronising_call(cuda, tmp_path, monkeypatch):
                            tmp_path)
     assert profiling.take_spans() == []
     assert syncs(on) == syncs(off) > 0
+
+
+# -- the UNet forward as a CUDA graph (models/forward_graph.py) ----------
+
+def _served_unet(config: str, int8: bool, cls=SR3UNet):
+    """The UNet of ``configs/<config>`` as the serving CLI builds it (int8
+    at its default, or ``--int8 0``), random weights, eval, on the card."""
+    from pathlib import Path
+
+    from sr3d_torch.config import get_cfg_defaults, update_cfg
+    from sr3d_torch.models.layers import init_lecun_normal_
+    from sr3d_torch.models.sr3_unet import unet_from_config
+    from sr3d_torch.serve import apply_serving_flags
+
+    cfg = apply_serving_flags(update_cfg(get_cfg_defaults(), str(
+        Path(__file__).resolve().parents[1] / "configs" / config)),
+        int8=None if int8 else 0)
+    unet = unet_from_config(cfg.sr.model.unet, cfg.sr.model.diffusion,
+                            cls=cls)
+    init_lecun_normal_(unet, torch.Generator().manual_seed(0))
+    return unet.eval().to("cuda")
+
+
+def _unet_inputs(unet, B, res, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, unet.in_channel, res, res, generator=g)
+    t = (torch.randint(0, 600, (B,), generator=g)
+         if unet.time_name == "time_mlp" else torch.rand(B, 1, generator=g))
+    return x.cuda(), t.cuda()
+
+
+def _eager(unet, x, t, quant):
+    return unet._forward(x, t, None, True, None, quant)
+
+
+def _counted(fn):
+    """``fn()``, the kernel wrappers' launches it made, and how the UNet
+    forward ran."""
+    def ran():
+        return (SR3UNet.eager_calls, SR3UNet.graph_captures,
+                SR3UNet.graph_replays)
+
+    before = ran()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = ran()
+    mode = ("eager", "capture", "replay")[
+        [a - b for a, b in zip(after, before)].index(1)]
+    return out, launch_counts(), mode
+
+
+@pytest.mark.parametrize("config,B,int8,cls", [
+    ("sr_sr3_VGGF2_16_128_model3.yml", 8, True, "sr3"),
+    ("sr_sr3_VGGF2_16_128_model3.yml", 8, False, "sr3"),
+    ("sr_sr3_VGGF2_16_128_model3.yml", 32, True, "sr3"),
+    ("sr_sr3_VGGF2_16_128_model3.yml", 32, False, "sr3"),
+    ("sr_sr3_VGGF2_8_32_model3.yml", 8, True, "sr3"),
+    ("sr_sr3_VGGF2_16_128_model3.yml", 8, True, "ddpm"),
+])
+def test_unet_graph_replays_the_eager_forward_bit_for_bit(cuda, config, B,
+                                                         int8, cls):
+    """A served UNet's forward: eager, then captured, then replayed on
+    other inputs, each bit-equal to the eager ``_forward`` on its inputs;
+    each call counts the eager forward's kernel launches; the capture and
+    replays quantize no weight and recompute no cached value; a result is
+    not changed by a later replay (no view of the graph's pool)."""
+    from sr3d_torch.models.ddpm_unet import DDPMUNet
+    from sr3d_torch.ops.quant import Versioned
+
+    unet = _served_unet(config, int8, DDPMUNet if cls == "ddpm" else SR3UNet)
+    res = 32 if "8_32" in config else 128
+    caches = [v for m in unet.modules() for v in vars(m).values()
+              if isinstance(v, Versioned)]
+    inputs = [_unet_inputs(unet, B, res, seed) for seed in range(4)]
+    outs, counts = [], []
+    with torch.no_grad():
+        want = [_eager(unet, x, t, int8) for x, t in inputs]
+        for (x, t), mode in zip(inputs, ("eager", "capture", "replay",
+                                         "replay")):
+            if mode == "capture":
+                quantizes = Int8Conv.weight_quantizes
+                computes = [v.computes for v in caches]
+            out, n, ran = _counted(lambda: unet(x, t, quant=int8))
+            assert ran == mode
+            outs.append(out)
+            counts.append(n)
+        assert Int8Conv.weight_quantizes == quantizes
+        assert [v.computes for v in caches] == computes
+    for out, w in zip(outs, want):
+        assert out.dtype == w.dtype and torch.equal(out, w)
+    assert all(c == counts[0] for c in counts), counts
+    assert counts[0]["int8_conv"] == (58 if int8 else 0)
+    assert unet._graphs.held() == 1
+
+
+def test_predictor_request_with_graphs_equals_eager(cuda, monkeypatch):
+    """A served request whose UNet forwards replay graphs gives the
+    request served with every forward eager, bit for bit."""
+    p, lr = _traced_predictor()
+    replays = SR3UNet.graph_replays
+    got = p.predict(lr)
+    assert SR3UNet.graph_replays - replays == 8      # 2 chunks × 4 steps
+    monkeypatch.setattr(SR3UNet, "_graph_key", lambda *a: None)
+    want = p.predict(lr)
+    assert SR3UNet.graph_replays - replays == 8
+    for k in want:
+        assert (got[k] == want[k]).all(), k
+
+
+def test_unet_graph_recaptures_after_weight_changes(cuda, monkeypatch):
+    """``load_state_dict`` and the EMA's weights under ``functional_call``
+    each start the signature over: eager, captured, replayed, bit-equal
+    to the eager forward of the weights in force; one graph held."""
+    from torch.func import functional_call
+
+    from sr3d_torch.models.layers import init_lecun_normal_
+
+    def small(seed):
+        torch.manual_seed(seed)
+        u = SR3UNet(inner_channel=64, norm_groups=8, channel_mults=(1, 2),
+                    attn_res=(8,), res_blocks=1, image_size=16,
+                    quant_min_res=1, quant_resample=True)
+        init_lecun_normal_(u, torch.Generator().manual_seed(seed))
+        return u.eval().cuda()
+
+    unet, x, t = small(0), *_unet_inputs(small(0), 8, 16, 1)
+    ema = {k: v.detach() * 0.9 for k, v in small(1).named_parameters()}
+    other = small(2).state_dict()
+
+    def eager(call):
+        with monkeypatch.context() as m:
+            m.setattr(unet, "_graph_key", lambda *a: None)
+            return call()
+
+    plain = lambda: unet(x, t, quant=True)            # noqa: E731
+    swapped = lambda: functional_call(unet, ema, (x, t),  # noqa: E731
+                                      {"quant": True})
+    with torch.no_grad():
+        for call, change in ((plain, None),
+                             (plain, lambda: unet.load_state_dict(other)),
+                             (swapped, None), (plain, None)):
+            if change:
+                change()
+            want = eager(call)
+            modes = []
+            for _ in range(3):
+                out, _, mode = _counted(call)
+                modes.append(mode)
+                assert torch.equal(out, want)
+            assert modes == ["eager", "capture", "replay"]
+            assert unet._graphs.held() == 1
+
+
+def test_unet_inside_an_outer_capture_runs_eagerly(cuda):
+    """Inside another CUDA graph's capture (``chip_smoke.py``'s
+    ``device_ms``) the forward runs eagerly, and the outer graph replays
+    it."""
+    unet = _served_unet("sr_sr3_VGGF2_8_32_model3.yml", True)
+    x, t = _unet_inputs(unet, 8, 32, 0)
+    with torch.no_grad():
+        want = _eager(unet, x, t, True)
+        for _ in range(3):                  # eager, capture, replay
+            unet(x, t, quant=True)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        eager = SR3UNet.eager_calls
+        with torch.cuda.graph(g):
+            y = unet(x, t, quant=True)
+        assert SR3UNet.eager_calls == eager + 1
+        g.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+def test_replayed_forward_shows_every_kernel_in_a_device_trace(cuda,
+                                                               tmp_path):
+    """A device-only trace of the flagship int8 forward at B = 8: a
+    replay runs as many kernels as the eager forward launches once its
+    caches are full (459), from at most 4 launch calls (the copies in and
+    out are memcpys); the capture, under the profiler, runs them too."""
+    from torch.profiler import ProfilerActivity
+
+    from sr3d_torch.utils import profiling
+
+    unet = _served_unet("sr_sr3_VGGF2_16_128_model3.yml", True)
+    x, t = _unet_inputs(unet, 8, 128, 0)
+
+    def traced(fn):
+        with torch.no_grad():
+            ev = _profiled_events(fn, [ProfilerActivity.CUDA], tmp_path)
+        return {"kernels": sum(e.get("ph") == "X" and e.get("cat") == "kernel"
+                               and profiling.MARKER not in e["name"]
+                               for e in ev),
+                "launches": sum(
+                    e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and ("LaunchKernel" in e["name"]
+                         or "GraphLaunch" in e["name"]) for e in ev)}
+
+    with torch.no_grad():
+        unet(x, t, quant=True)              # eager: fills the caches
+    eager = traced(lambda: _eager(unet, x, t, True))
+    capture = traced(lambda: unet(x, t, quant=True))
+    replay = traced(lambda: unet(x, t, quant=True))
+    assert SR3UNet.graph_replays > 0 and unet._graphs.held() == 1
+    # a kernel event of the eager forward may go missing from a trace, a
+    # launch call does not
+    assert replay["kernels"] == eager["launches"] >= 400, (eager, replay)
+    # capture_begin's fills of the generator's graph state run besides
+    assert capture["kernels"] >= replay["kernels"], (capture, replay)
+    # the graph's launch and the span's two marker kernels
+    assert replay["launches"] <= 4, replay
