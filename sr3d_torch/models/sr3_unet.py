@@ -49,6 +49,21 @@ drawn outside the checkpointed call: the recompute draws the same mask.
 
 ``eval()`` is the serving forward: no dropout, no checkpoint.
 
+Level marks.  Where a forward is captured into a CUDA graph, and in an
+eager forward on CUDA while spans record (``utils/profiling.py``), the
+forward launches a level mark (``kernels/level_mark.py``, a one-thread
+kernel that does nothing) at four boundaries: at its start, after the
+encoder's ``OUTER_LEVELS`` highest-resolution levels (their ResnetBlocks
+and Downsamples), before the decoder's (after the Upsample that enters
+them), and at its end.  A device trace of a replayed forward, one
+launch, is cut into the outer levels and the inner ones (the mid block
+with them) by those marks; the ``sr3d.unet`` span's ``levels``
+attribute names the three segments in order (``level_labels``:
+``e512-e256, e128-d128, d256-d512`` on 512² inputs).  A mark at every
+level boundary (12 at 5 levels) cost 1.0% of the 8→32 serving cell's
+faces a second on an H100; these four keep the split the benchmark
+reads.  Off CUDA a mark is nothing.
+
 Under the parallel layer's spatial layout (``parallel.pjit_sample_spatial``,
 ``Predictor(spatial=True)``) each rank runs the UNet on a band of the image's
 rows: the 3×3 convs exchange halo rows (``models/layers.py``), GroupNorm sums
@@ -72,16 +87,45 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.attention import spatial_attention
 from ..kernels.groupnorm_swish import (gn_mean_scale, gn_stats, gn_swish,
                                        gn_swish_apply)
+from ..kernels.level_mark import level_mark
 from ..ops.quant import Int8Conv, Versioned, gn_static_scale
 from ..parallel import layout
 from ..parallel.collectives import all_gather, all_reduce_sum
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, recording
 from .forward_graph import ForwardGraphs
 from .layers import Conv2d, Linear
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+OUTER_LEVELS = 2   # the highest-resolution levels the marks set apart
+
+
+@functools.lru_cache(maxsize=None)
+def level_labels(n_levels: int, res: int) -> tuple[str, ...]:
+    """The segments between a forward's level marks, in order, for a UNet
+    of ``n_levels`` resolution levels on ``res``² inputs: the encoder's
+    outer levels (``e{res}-e{res/2}``), the inner levels with the mid
+    block between them (``e{res/4}-d{res/4}``, or ``mid``), the decoder's
+    outer levels (``d{res/2}-d{res}``)."""
+    sizes = [res >> i for i in range(n_levels)]
+    k = min(OUTER_LEVELS, n_levels)
+
+    def span(a: str, b: str) -> str:
+        return a if a == b else f"{a}-{b}"
+
+    inner = span(f"e{sizes[k]}", f"d{sizes[k]}") if k < n_levels else "mid"
+    return (span(f"e{sizes[0]}", f"e{sizes[k - 1]}"), inner,
+            span(f"d{sizes[k - 1]}", f"d{sizes[0]}"))
+
+
+def marks_recorded(x: torch.Tensor) -> bool:
+    """Whether a forward on ``x`` launches its level marks: on CUDA, into
+    a graph being captured or while spans record."""
+    return x.is_cuda and (torch.cuda.is_current_stream_capturing()
+                          or recording())
 
 
 def positional_encoding(noise_level: torch.Tensor, dim: int) -> torch.Tensor:
@@ -345,8 +389,12 @@ class SR3UNet(nn.Module):
                               compute_dtype=dtype)
 
         # The forward walks self.plan; the channel bookkeeping mirrors the
-        # flax module's trace-time shapes.
+        # flax module's trace-time shapes.  A level mark follows the plan
+        # steps in _level_ends, and the final block.
         self.plan: list[tuple[str, str]] = []
+        self.n_levels = len(channel_mults)
+        outer = min(OUTER_LEVELS, self.n_levels)
+        level_ends = []
         attn_res = set(attn_res)
         now_res = image_size
         feats = [inner]
@@ -365,8 +413,12 @@ class SR3UNet(nn.Module):
                           Downsample(ch, dtype))
                 feats.append(ch)
                 now_res //= 2
+            if ind == outer - 1:
+                level_ends.append(len(self.plan) - 1)
         self._add("mid", "mid_0", block(ch, ch, inner, g, True))
         self._add("mid", "mid_1", block(ch, ch, inner, g, False))
+        if outer == n:
+            level_ends.append(len(self.plan) - 1)
         for ind in reversed(range(n)):
             use_attn = now_res in attn_res
             out = inner * channel_mults[ind]
@@ -377,6 +429,9 @@ class SR3UNet(nn.Module):
             if ind != 0:
                 self._add("upsample", f"upsample_{ind}", Upsample(ch, dtype))
                 now_res *= 2
+                if ind == outer:
+                    level_ends.append(len(self.plan) - 1)
+        self._level_ends = frozenset(level_ends)
         self.final_conv = ConvBlock(ch, out_channel, g, dtype)
         self._tp_layers = tuple(m for m in self.modules()
                                 if isinstance(m, (Conv2d, Linear)))
@@ -415,10 +470,14 @@ class SR3UNet(nn.Module):
         eagerly, its second captures the graph and replays it, later ones
         replay it, each bit-equal to the eager forward.  Each call counts
         in ``eager_calls``, ``graph_captures`` or ``graph_replays``, and
-        its ``sr3d.unet`` span's ``graph`` says which."""
+        its ``sr3d.unet`` span's ``graph`` says which, and its ``levels``
+        the segments between the forward's level marks."""
         key = self._graph_key(x, time, deterministic, quant)
         mode, g = ("eager", None) if key is None else self._graphs.lookup(key)
-        with annotate("sr3d.unet", graph=mode):
+        rows = layout.current().rows
+        res = x.shape[2] * (1 if rows is None else rows.size)
+        with annotate("sr3d.unet", graph=mode,
+                      levels=level_labels(self.n_levels, res)):
             if mode == "replay":
                 SR3UNet.graph_replays += 1
                 return self._graphs.replay(g, (x, time))
@@ -464,12 +523,15 @@ class SR3UNet(nn.Module):
             seeds = dict(zip(blocks, torch.randint(
                 0, 2 ** 62, (len(blocks),), generator=generator,
                 device=generator.device).tolist()))
+        mark = marks_recorded(x)
+        if mark:
+            level_mark(x.device)
         t = getattr(self, self.time_name)(time)
         h = self.conv_in(x.to(self.dtype))
         feats = [h]
         rows = layout.current().rows
         split = 1 if rows is None else rows.size   # h holds a band of rows
-        for kind, name in self.plan:
+        for i, (kind, name) in enumerate(self.plan):
             mod = getattr(self, name)
             q = quant and self._quant_gate(kind, h.shape[2] * split)
             if kind in ("down", "mid", "up"):
@@ -484,7 +546,12 @@ class SR3UNet(nn.Module):
                 h = mod(h, q)
             if kind in ("down", "downsample"):
                 feats.append(h)
-        return self.final_conv(h).to(in_dtype)
+            if mark and i in self._level_ends:
+                level_mark(x.device)
+        out = self.final_conv(h).to(in_dtype)
+        if mark:
+            level_mark(x.device)
+        return out
 
 
 def unet_from_config(unet_cfg, diffusion_cfg, *,

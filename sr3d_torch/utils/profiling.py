@@ -112,10 +112,16 @@ class Span:
                              request=self.request)}
 
 
+def recording() -> bool:
+    """Whether spans record now: ``spans_on()`` holds or a profiler
+    records."""
+    return _on or _prof._is_profiler_enabled
+
+
 def annotate(name: str, **attrs):
     """``with annotate("sr3d.step", k=3): ...``: a span of the block (a
     no-op unless spans are on or a profiler records)."""
-    if not (_on or _prof._is_profiler_enabled):
+    if not recording():
         return _NULL
     return Span(name, attrs)
 

@@ -135,6 +135,24 @@ def test_gn_swish_two_pass_for_a_group_larger_than_a_cluster(cuda):
         y, gn_swish_reference(x, gamma, beta, 32), **TOL[torch.float32])
 
 
+@pytest.mark.parametrize("C", [64, 128, 192])
+def test_gn_swish_two_pass_at_the_512_level(cuda, C):
+    """bf16 [4, C, 512, 512], the 64->512 UNet's outermost GN+Swish
+    inputs: groups of 2–6 channels × 512² are larger than a cluster of 8
+    CTAs holds, so ``gn_plan`` gives the stats + apply pair."""
+    shape = (4, C, 512, 512)
+    assert gn_plan(4, C, 32, 512 * 512, torch.bfloat16).path == "two_pass"
+    x, gamma, beta = _gn_inputs(shape, torch.bfloat16, cuda, seed=4)
+    reset_launch_counts()
+    y = gn_swish(x, gamma, beta, 32)
+    torch.cuda.synchronize()
+    assert launch_counts()["gn_swish"] == 1
+    assert launch_counts()["gn_stats"] == 1
+    torch.testing.assert_close(
+        y.float(), gn_swish_reference(x, gamma, beta, 32).float(),
+        **TOL[torch.bfloat16])
+
+
 def test_gn_near_constant_large_mean_is_finite(cuda):
     """The clamped one-pass variance keeps a constant bf16 map at a large
     magnitude finite; it normalises to ~swish(beta)."""
@@ -160,6 +178,7 @@ def test_gn_near_constant_large_mean_is_finite(cuda):
     (1, 37, 40),     # ragged query, key and channel tiles
     (1, 100, 200),   # a ragged last slice, clusters of 4
     (1, 256, 1024),  # two slices a CTA
+    (4, 256, 1024),  # the 64->512 UNet's 16² attention levels
     (2, 16, 36),     # bf16 with C % 8 != 0: the CUDA-core kernel
 ])
 def test_attention_kernel_matches_plain(cuda, shape, dtype):
@@ -654,6 +673,8 @@ def test_int8_unet_launches_each_gated_conv(cuda):
     ((2, 256, 16, 16), 512, 2, None),   # stride 2 into 8x8, two images
     ((8, 192, 128, 128), 64, 1, 1),     # the widest: BN 64, 256 pixels
     ((8, 128, 64, 64), 128, 1, 1),      # BN 128, unsplit
+    ((4, 192, 512, 512), 64, 1, 1),     # the 64->512 UNet's widest
+    ((4, 64, 512, 512), 64, 1, 1),      # its 512² ResnetBlock convs
 ])
 def test_int8_conv_tensor_cores_match_plain(cuda, xshape, O, stride, splits,
                                             dtype, out_dtype):
@@ -1200,3 +1221,59 @@ def test_replayed_forward_shows_every_kernel_in_a_device_trace(cuda,
     assert capture["kernels"] >= replay["kernels"], (capture, replay)
     # the graph's launch and the span's two marker kernels
     assert replay["launches"] <= 4, replay
+
+
+@pytest.mark.parametrize("config,B,res", [("sr3_16_128", 8, 128),
+                                          ("sr3_8_32", 8, 32),
+                                          ("sr3_64_512", 4, 512)])
+def test_replay_holds_the_level_marks_its_levels_name(cuda, tmp_path,
+                                                      config, B, res):
+    """A device trace of one replay of a benchmark configuration's served
+    UNet: its level marks are ``levels`` + 1 (4, around the two outer
+    levels of the encoder and of the decoder), each segment between two
+    holds kernels, every other kernel of the forward lies between the
+    first and the last, and the replay is still one graph launch (with
+    the span's two clock markers)."""
+    import json
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity
+
+    from benchmark import spec
+    from sr3d_torch.config import get_cfg_defaults
+    from sr3d_torch.kernels.level_mark import LEVEL_MARK
+    from sr3d_torch.models.layers import init_lecun_normal_
+    from sr3d_torch.models.sr3_unet import level_labels, unet_from_config
+    from sr3d_torch.utils import profiling
+
+    conf = json.loads((Path(spec.HERE) / "configs"
+                       / f"{config}.json").read_text())
+    cfg = get_cfg_defaults()
+    cfg.merge_from_other(spec.program_tree(
+        conf, {"serve": {"steps": 25, "int8": None}}), strict=True)
+    unet = unet_from_config(cfg.sr.model.unet, cfg.sr.model.diffusion)
+    init_lecun_normal_(unet, torch.Generator().manual_seed(0))
+    unet = unet.eval().cuda()
+    x, t = _unet_inputs(unet, B, res, 0)
+    with torch.no_grad():
+        for _ in range(2):                  # eager, capture
+            unet(x, t, quant=True)
+        profiling.take_spans()
+        ev = _profiled_events(lambda: unet(x, t, quant=True),
+                              [ProfilerActivity.CUDA], tmp_path)
+    spans = [s for s in profiling.take_spans() if s.name == "sr3d.unet"]
+    assert [s.attrs["graph"] for s in spans] == ["replay"]
+    levels = spans[0].attrs["levels"]
+    assert levels == level_labels(unet.n_levels, res)
+    assert len(levels) + 1 == 4
+    kernels = sorted((e["ts"], e["name"]) for e in ev
+                     if e.get("ph") == "X" and e.get("cat") == "kernel"
+                     and profiling.MARKER not in e["name"])
+    marks = [i for i, (_, n) in enumerate(kernels) if LEVEL_MARK in n]
+    assert len(marks) == len(levels) + 1, len(marks)
+    assert marks[0] == 0 and marks[-1] == len(kernels) - 1
+    assert all(b - a > 1 for a, b in zip(marks, marks[1:])), marks
+    launches = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and ("LaunchKernel" in e["name"]
+                        or "GraphLaunch" in e["name"]) for e in ev)
+    assert launches <= 4, launches

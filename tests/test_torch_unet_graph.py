@@ -3,8 +3,8 @@
 calls may replay a graph, over each condition that keeps a call eager;
 the signature a graph is held against, over every kind of weight change a
 serving or training run makes (the cases of ``test_torch_int8_cache.py``);
-the CPU forward, eager and unchanged; and the ``graph`` attribute of the
-``sr3d.unet`` span.  Capturing and replaying need the card
+the CPU forward, eager and unchanged; and the ``graph`` and ``levels``
+attributes of the ``sr3d.unet`` span.  Capturing and replaying need the card
 (``tests/test_torch_cuda.py``): here ``capture`` and ``replay`` are
 stood in for by the eager forward, so the bookkeeping around them runs."""
 
@@ -212,5 +212,7 @@ def test_the_unet_span_says_how_the_forward_ran(graphed):
     finally:
         profiling.spans_off()
     spans = profiling.take_spans()
+    levels = ("e16-e8", "mid", "d8-d16")
     assert [(s.name, s.attrs) for s in spans] == [
-        ("sr3d.unet", {"graph": m}) for m in ("eager", "capture", "replay")]
+        ("sr3d.unet", {"graph": m, "levels": levels})
+        for m in ("eager", "capture", "replay")]
