@@ -303,7 +303,8 @@ def _find_dynamic_lmk_idx_and_bcoords(model: FlameModel,
     """Contour-landmark table rows picked by the neck's y-rotation."""
     B = full_pose.shape[0]
     chain = model.neck_kin_chain.tolist()
-    aa_pose = full_pose.view(B, -1, 3)[:, chain]
+    aa_pose = full_pose.view(B, -1, 3)[
+        :, lbs_ops.index_on(tuple(chain), full_pose.device)]
     rot_mats = lbs_ops.batch_rodrigues(aa_pose.reshape(-1, 3)) \
         .view(B, -1, 3, 3)
     rel = torch.eye(3, dtype=full_pose.dtype, device=full_pose.device) \

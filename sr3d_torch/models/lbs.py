@@ -2,11 +2,23 @@
 
 Counterpart of ``sr3d_tpu/models/lbs.py``, the standard SMPL/FLAME LBS
 pipeline; the kinematic chain is a Python loop over the J = 5 joints.
+The joint tree's constant indices go to the device once (``index_on``):
+indexing with a Python list copies the list from host memory at every
+call, and that copy waits for everything queued on the device.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=16)
+def index_on(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The int64 index ``values`` on ``device``, copied there once;
+    ``t[:, index_on(v, t.device)]`` is ``t[:, list(v)]``."""
+    return torch.tensor(values, dtype=torch.long).to(device)
 
 
 def batch_rodrigues(rot_vecs: torch.Tensor, epsilon: float = 1e-8
@@ -78,7 +90,7 @@ def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
     B, J = joints.shape[:2]
     par = [int(p) for p in parents.tolist()]
     rel_joints = joints.clone()
-    rel_joints[:, 1:] -= joints[:, par[1:]]
+    rel_joints[:, 1:] -= joints[:, index_on(tuple(par[1:]), joints.device)]
     transforms_mat = transform_mat(rot_mats, rel_joints[..., None])
     chain = [transforms_mat[:, 0]]
     for j in range(1, J):

@@ -8,7 +8,10 @@ kernel with a = −0.5 (torch's bicubic uses −0.75, up to 0.17 apart at
 remaining weights renormalised (torch clamps the index instead), and
 ``antialias=True`` widens the kernel when downsampling.  So each spatial axis
 is a dense ``[out, in]`` weight matrix built the way JAX builds it (fp32),
-and the resize is two small matmuls.
+and the resize is two small matmuls.  Off the CPU each matrix is copied to
+the device once and kept there (``_on_device``): a copy from host memory
+makes the host wait for everything queued on the device, which in serving
+is the whole sampling loop.
 """
 
 from __future__ import annotations
@@ -60,6 +63,23 @@ def _weight_matrix(in_size: int, out_size: int, method: str,
     return np.ascontiguousarray(w.T.astype(np.float32))
 
 
+@functools.lru_cache(maxsize=64)
+def _on_device(in_size: int, out_size: int, method: str, antialias: bool,
+               device: torch.device) -> torch.Tensor:
+    """``_weight_matrix`` on ``device``, copied there once: the same fp32
+    values, so a resize through it is bit-equal."""
+    return torch.from_numpy(_weight_matrix(in_size, out_size, method,
+                                           antialias)).to(device)
+
+
+def _weights(in_size: int, out_size: int, method: str, antialias: bool,
+             device: torch.device) -> torch.Tensor:
+    if device.type == "cpu":
+        return torch.from_numpy(_weight_matrix(in_size, out_size, method,
+                                               antialias))
+    return _on_device(in_size, out_size, method, antialias, device)
+
+
 def resize(x: torch.Tensor, height: int, width: int,
            method: str = "bilinear", antialias: bool = False
            ) -> torch.Tensor:
@@ -72,11 +92,11 @@ def resize(x: torch.Tensor, height: int, width: int,
         raise KeyError(method)
     x = x.float()
     if H != height:
-        wh = torch.from_numpy(_weight_matrix(H, height, method, antialias))
-        x = torch.einsum("oh,bhwc->bowc", wh.to(x.device), x)
+        wh = _weights(H, height, method, antialias, x.device)
+        x = torch.einsum("oh,bhwc->bowc", wh, x)
     if W != width:
-        ww = torch.from_numpy(_weight_matrix(W, width, method, antialias))
-        x = torch.einsum("pw,bowc->bopc", ww.to(x.device), x)
+        ww = _weights(W, width, method, antialias, x.device)
+        x = torch.einsum("pw,bowc->bopc", ww, x)
     return x
 
 

@@ -2,10 +2,11 @@
 block.
 
 Spans.  ``with annotate(name, **attrs):`` marks one phase of the program.
-The serving path has six: ``sr3d.request`` (``Predictor.predict``, whole),
-``sr3d.prep`` (the condition's H2D copy and resize), ``sr3d.step`` (one
-sampler iteration with its noise draw), ``sr3d.unet`` (one UNet forward),
-``sr3d.mica`` (ArcFace, the mapping, FLAME and the landmarks) and
+The serving path has seven: ``sr3d.request`` (``Predictor.predict``,
+whole), ``sr3d.prep`` (the condition's H2D copy and resize), ``sr3d.step``
+(one sampler iteration with its noise draw), ``sr3d.unet`` (one UNet
+forward), ``sr3d.mica`` (ArcFace, the mapping, FLAME and the landmarks),
+``sr3d.arcface`` (ArcFace's forward, inside ``sr3d.mica``) and
 ``sr3d.fetch`` (the host's wait for the device and the copy back).  A span
 records only while ``spans_on()`` holds or a ``torch.profiler`` records;
 otherwise a span site costs one flag check and reads no clock.  A recorded

@@ -1001,8 +1001,8 @@ def test_spans_add_no_synchronising_call(cuda, tmp_path, monkeypatch):
     on = _profiled_events(lambda: p.predict(lr), [ProfilerActivity.CUDA],
                           tmp_path)
     # the request, its prep and fetch, 2 chunks × 4 steps and UNet
-    # forwards, 2 MICA branches
-    assert len(profiling.take_spans()) == 21
+    # forwards, 2 MICA branches with their ArcFace forwards
+    assert len(profiling.take_spans()) == 23
     monkeypatch.setattr(profiling, "_prof",
                         SimpleNamespace(_is_profiler_enabled=False))
     off = _profiled_events(lambda: p.predict(lr), [ProfilerActivity.CUDA],
@@ -1277,3 +1277,210 @@ def test_replay_holds_the_level_marks_its_levels_name(cuda, tmp_path,
                    and ("LaunchKernel" in e["name"]
                         or "GraphLaunch" in e["name"]) for e in ev)
     assert launches <= 4, launches
+
+
+# -- the MICA branch without waits: ArcFace's forward as a CUDA graph ----
+
+def _arcface(seed=0, layers=(3, 13, 30, 3)):
+    """A served ArcFace (iresnet100 by default, bf16 convs): random
+    weights and running statistics away from their 0/1 init, eval, on the
+    card."""
+    from sr3d_torch.models.arcface import BatchNorm, IResNet
+    from sr3d_torch.models.layers import init_lecun_normal_
+
+    torch.manual_seed(seed)
+    net = IResNet(layers=layers)
+    init_lecun_normal_(net, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.mean.copy_(torch.randn(m.mean.shape, generator=g) * 0.1)
+                m.var.copy_(torch.rand(m.var.shape, generator=g) + 0.5)
+    return net.eval().requires_grad_(False).cuda()
+
+
+def _blobs(B, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(B, 3, 112, 112, generator=g) * 2 - 1).cuda()
+
+
+def _arcface_call(net, x):
+    """``net(x)`` and how its forward ran."""
+    from sr3d_torch.models.arcface import IResNet
+
+    def ran():
+        return (IResNet.eager_calls, IResNet.graph_captures,
+                IResNet.graph_replays)
+
+    before = ran()
+    out = net(x)
+    torch.cuda.synchronize()
+    mode = ("eager", "capture", "replay")[
+        [a - b for a, b in zip(ran(), before)].index(1)]
+    return out, mode
+
+
+@pytest.mark.parametrize("B", [1, 4, 8, 32])
+def test_arcface_graph_replays_the_eager_forward_bit_for_bit(cuda, B):
+    """iresnet100's forward: eager, then captured, then replayed on other
+    blobs, each bit-equal to the eager ``_forward`` on its blobs; a result
+    is not changed by a later replay (no view of the graph's pool)."""
+    net = _arcface()
+    blobs = [_blobs(B, seed) for seed in range(4)]
+    with torch.no_grad():
+        want = [net._forward(x) for x in blobs]
+        outs = []
+        for x, mode in zip(blobs, ("eager", "capture", "replay", "replay")):
+            out, ran = _arcface_call(net, x)
+            assert ran == mode
+            outs.append(out)
+    for out, w in zip(outs, want):
+        assert out.dtype == w.dtype == torch.float32 and torch.equal(out, w)
+    assert net._graphs.held() == 1
+
+
+def test_arcface_graph_follows_the_weights_and_statistics(cuda):
+    """An optimizer step and ``load_state_dict`` each start the signature
+    over (eager, captured, replayed), bit-equal to the eager forward of
+    the weights in force; a train-mode BatchNorm update of the running
+    statistics shows in the next replay, with no recapture."""
+    net, other = _arcface(0), _arcface(1).state_dict()
+    x = _blobs(8, 0)
+    head = [p for n, p in net.named_parameters() if n.startswith("fc.")]
+
+    def step():
+        for p in head:
+            p.requires_grad_(True)
+            p.grad = torch.full_like(p, 1e-3)
+        torch.optim.SGD(head, lr=1.0).step()
+        for p in head:
+            p.requires_grad_(False)
+            p.grad = None
+
+    with torch.no_grad():
+        first = None
+        for change in (None, step, lambda: net.load_state_dict(other)):
+            if change:
+                change()
+            want = net._forward(x)
+            modes = []
+            for _ in range(3):
+                out, mode = _arcface_call(net, x)
+                modes.append(mode)
+                assert torch.equal(out, want)
+            assert modes == ["eager", "capture", "replay"]
+            assert first is None or not torch.equal(want, first)
+            first = want
+            assert net._graphs.held() == 1
+        net.train()                     # stage 4 and the head
+        _, mode = _arcface_call(net, _blobs(8, 1))
+        assert mode == "eager"          # and the statistics updated
+        net.eval()
+        want = net._forward(x)
+        out, mode = _arcface_call(net, x)
+    assert mode == "replay" and not torch.equal(want, first)
+    assert torch.equal(out, want)
+
+
+def test_arcface_inside_an_outer_capture_runs_eagerly(cuda):
+    """Inside another CUDA graph's capture the forward runs eagerly, and
+    the outer graph replays it."""
+    from sr3d_torch.models.arcface import IResNet
+
+    net, x = _arcface(layers=(1, 1, 1, 1)), _blobs(4, 0)
+    with torch.no_grad():
+        want = net._forward(x)
+        for _ in range(3):                  # eager, capture, replay
+            net(x)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        eager = IResNet.eager_calls
+        with torch.cuda.graph(g):
+            y = net(x)
+        assert IResNet.eager_calls == eager + 1
+        g.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+def test_served_request_waits_on_the_device_only_to_fetch(cuda, monkeypatch):
+    """Once two requests have warmed it (the resize matrices and FLAME's
+    indices copied, the UNet's and ArcFace's graphs captured), a request
+    makes no synchronising call from the end of its prep to its fetch:
+    every sampler step, the hand-off, ArcFace, the mapping, FLAME and the
+    landmarks run under ``set_sync_debug_mode("error")``."""
+    from sr3d_torch import serve
+    from sr3d_torch.models.arcface import IResNet
+
+    p, lr = _traced_predictor()
+    p.predict(lr)
+    prep, annotate = p._prep_cond, serve.annotate
+
+    def prep_then_error(*a, **k):
+        cond = prep(*a, **k)
+        torch.cuda.set_sync_debug_mode("error")
+        return cond
+
+    def fetch_allowed(name, **attrs):
+        if name == "sr3d.fetch":
+            torch.cuda.set_sync_debug_mode("default")
+        return annotate(name, **attrs)
+
+    monkeypatch.setattr(p, "_prep_cond", prep_then_error)
+    monkeypatch.setattr(serve, "annotate", fetch_allowed)
+    replays = IResNet.graph_replays
+    try:
+        got = p.predict(lr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert IResNet.graph_replays - replays == 2        # 2 chunks
+    monkeypatch.undo()
+    assert all((got[k] == v).all() for k, v in p.predict(lr).items())
+
+
+def test_predictor_request_with_arcface_graph_equals_eager(cuda,
+                                                           monkeypatch):
+    """A served request whose ArcFace forwards replay a graph gives the
+    request served with ArcFace eager, bit for bit: ``sr_u8``, ``verts``,
+    ``lmk68`` and ``identity``."""
+    from sr3d_torch.models.arcface import IResNet
+
+    p, lr = _traced_predictor()
+    p.predict(lr)
+    replays = IResNet.graph_replays
+    got = p.predict(lr)
+    assert IResNet.graph_replays - replays == 2        # 2 chunks
+    monkeypatch.setattr(IResNet, "_graph_key", lambda *a: None)
+    want = p.predict(lr)
+    assert IResNet.graph_replays - replays == 2
+    assert set(want) == {"sr_u8", "verts", "lmk68", "identity"}
+    for k in want:
+        assert (got[k] == want[k]).all(), k
+
+
+def test_resize_on_the_card_copies_each_matrix_once(cuda):
+    """The hand-off's resizes on the card: bit-equal to the matrices
+    copied at each call, and after the first call of a shape no copy
+    from the host and no synchronising call."""
+    from sr3d_torch.ops import image
+
+    x = torch.rand(8, 128, 128, 3, generator=torch.Generator()
+                   .manual_seed(0)).cuda()
+    for method in ("bilinear", "bicubic"):
+        for size in ((224, 224), (112, 112), (128, 96)):
+            want = x
+            if size[0] != 128:
+                wh = torch.from_numpy(image._weight_matrix(
+                    128, size[0], method, False)).cuda()
+                want = torch.einsum("oh,bhwc->bowc", wh, want)
+            ww = torch.from_numpy(image._weight_matrix(
+                128, size[1], method, False)).cuda()
+            want = torch.einsum("pw,bowc->bopc", ww, want)
+            image.resize(x, *size, method)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = image.resize(x, *size, method)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert torch.equal(got, want), (method, size)

@@ -60,15 +60,17 @@ def _recorded(p: Predictor, lr=LR) -> tuple[dict, list]:
                                            ("ddpm", 20)])
 def test_predict_records_one_request_tree(sampler, steps, ddim):
     """One request, its prep and fetch under it, one step a sampler step
-    with exactly one UNet forward under it, one MICA branch a chunk; every
-    span carries the request's id, rank 0 and its parent."""
+    with exactly one UNet forward under it, one MICA branch a chunk with
+    its ArcFace forward under it; every span carries the request's id,
+    rank 0 and its parent."""
     p = ddim if sampler == "ddim" else _predictor(sampler)
     _, spans = _recorded(p)
     count = Counter(s.name for s in spans)
     chunks = 2                                  # 3 faces in chunks of 2
     assert count == {"sr3d.request": 1, "sr3d.prep": 1, "sr3d.fetch": 1,
                      "sr3d.step": chunks * steps,
-                     "sr3d.unet": chunks * steps, "sr3d.mica": chunks}
+                     "sr3d.unet": chunks * steps, "sr3d.mica": chunks,
+                     "sr3d.arcface": chunks}
     by_id = {s.id: s for s in spans}
     (req,) = [s for s in spans if s.name == "sr3d.request"]
     assert req.parent is None and req.attrs == {"faces": 3, "chunks": 2}
@@ -76,8 +78,8 @@ def test_predict_records_one_request_tree(sampler, steps, ddim):
     assert {s.rank for s in spans} == {0}
     for s in spans:
         assert req.start_ns <= s.start_ns <= s.end_ns <= req.end_ns
-        want = {"sr3d.request": None, "sr3d.unet": "sr3d.step"}.get(
-            s.name, "sr3d.request")
+        want = {"sr3d.request": None, "sr3d.unet": "sr3d.step",
+                "sr3d.arcface": "sr3d.mica"}.get(s.name, "sr3d.request")
         assert (by_id[s.parent].name if s.parent is not None
                 else None) == want, s.name
     steps_seen = [s for s in spans if s.name == "sr3d.step"]
@@ -133,7 +135,8 @@ def test_a_profiler_records_spans_and_their_ranges(tmp_path, ddim):
     spans = doc["traceEvents"]
     assert Counter(e["name"] for e in spans) == {
         "sr3d.request": 1, "sr3d.prep": 1, "sr3d.fetch": 1,
-        "sr3d.step": STEPS, "sr3d.unet": STEPS, "sr3d.mica": 1}
+        "sr3d.step": STEPS, "sr3d.unet": STEPS, "sr3d.mica": 1,
+        "sr3d.arcface": 1}
     for name, n in Counter(e["name"] for e in spans).items():
         assert ranges[name] == n
     assert doc["otherData"] == {"clock": "perf_counter", "offset_us": 0.0,
