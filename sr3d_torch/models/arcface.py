@@ -28,9 +28,9 @@ blob, NCHW ``[B, 3, 112, 112]``, BGR in [−1, 1].
 On the card an eval-mode, no-grad forward (serving, validation) is a CUDA
 graph, as the UNet's is (``models/forward_graph.py``): iresnet100's some
 two thousand operator calls, most of them the fp32 BatchNorm and PReLU
-arithmetic of its 100 layers, are one launch.  ``IResNet._graph_key``
-says which calls may use it.  The BatchNorm statistics are buffers the
-graph reads in place, so an update of them shows in the next replay.
+arithmetic of its 100 layers, are one launch.  The BatchNorm statistics
+are buffers the graph reads in place, so an update of them shows in the
+next replay.
 """
 
 from __future__ import annotations
@@ -42,7 +42,6 @@ from torch import nn
 
 from ..parallel import layout
 from ..parallel.collectives import all_reduce_sum
-from ..utils.profiling import annotate
 from .forward_graph import ForwardGraphs
 from .layers import Conv2d, Linear
 
@@ -149,11 +148,6 @@ class IResNet(nn.Module):
     """``layers=(3, 13, 30, 3)`` is iresnet100.  ``forward(x)``:
     ``[B, 3, 112, 112]`` → ``[B, num_features]`` fp32 embeddings."""
 
-    # forwards of every instance, by how they ran (``forward``)
-    graph_captures = 0
-    graph_replays = 0
-    eager_calls = 0
-
     def __init__(self, layers: Sequence[int] = (3, 13, 30, 3),
                  num_features: int = 512, dtype: torch.dtype = torch.bfloat16,
                  fc_scale: int = 7 * 7, train_frozen_prefix: bool = False):
@@ -171,8 +165,6 @@ class IResNet(nn.Module):
         self.fc = Linear(512 * fc_scale, num_features)
         self.features = BatchNorm(num_features, use_scale=False)
         self._submodules = tuple(self.modules())
-        self._tp_layers = tuple(m for m in self._submodules
-                                if isinstance(m, (Conv2d, Linear)))
         self._graphs = ForwardGraphs(self)
 
     def train(self, mode: bool = True) -> "IResNet":
@@ -185,39 +177,12 @@ class IResNet(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Where ``_graph_key`` allows, a CUDA graph of the forward: a
-        signature's first call runs eagerly, its second captures the graph
-        and replays it, later ones replay it, each bit-equal to the eager
-        forward.  Each call counts in ``eager_calls``, ``graph_captures``
-        or ``graph_replays``, and its ``sr3d.arcface`` span's ``graph``
-        says which."""
-        key = self._graph_key(x)
-        mode, g = ("eager", None) if key is None else self._graphs.lookup(key)
-        with annotate("sr3d.arcface", graph=mode):
-            if mode == "replay":
-                IResNet.graph_replays += 1
-                return self._graphs.replay(g, (x,))
-            if mode == "capture":
-                IResNet.graph_captures += 1
-                return self._graphs.capture(g, self._forward, (x,))
-            IResNet.eager_calls += 1
-            return self._forward(x)
-
-    def _graph_key(self, x: torch.Tensor) -> tuple | None:
-        """The input signature under which this call may replay a CUDA
-        graph of the forward, or None where it runs eagerly: off CUDA,
-        with grad enabled (training), with any submodule in train mode
-        (BatchNorm would normalise with the batch's statistics and update
-        its running ones), where a collective runs inside the forward (a
-        layout with axes, a tensor-parallel layer), or inside another
-        capture."""
-        if not (x.is_cuda and not torch.is_grad_enabled()
-                and not any(m.training for m in self._submodules)
-                and not layout.current().axes()
-                and all(m.tp is None for m in self._tp_layers)
-                and not torch.cuda.is_current_stream_capturing()):
-            return None
-        return (x.shape, x.stride(), x.dtype, x.device)
+        """Runs through ``ForwardGraphs.run``: eagerly where any submodule
+        is in train mode (BatchNorm would normalise with the batch's
+        statistics and update its running ones)."""
+        return self._graphs.run(
+            self._forward, (x,), span="sr3d.arcface",
+            eager=any(m.training for m in self._submodules))
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.prelu(self.bn1(self.conv1(x)))

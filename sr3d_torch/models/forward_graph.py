@@ -6,11 +6,17 @@ wrapper, and on the H100 the host takes longer to launch them than the
 device to run them.  Replayed as a CUDA graph the forward is one launch:
 the same kernels, in the same order, on the same data, so its output is
 the eager forward's bit for bit.  ``ForwardGraphs`` keeps those graphs
-for one module; the module decides which calls may use them
-(``SR3UNet._graph_key``).
+for one module, and a module whose forward may be graphed runs it
+through ``ForwardGraphs.run``, the one place that decides how a call runs.
 
-For each input signature (the caller's key: shapes, strides, dtypes, the
-static arguments) it holds at most one graph, made in three steps:
+A call runs eagerly where the module says so (``run(eager=True)``: the
+UNet's dropout drawn, ArcFace in train mode) or where ``signature``
+finds it may not replay a graph: an input off CUDA, grad enabled, a
+collective inside the forward (a layout with axes, a tensor-parallel
+``Conv2d`` or ``Linear`` in the module), or another capture underway.
+Otherwise its input signature is each input's shape, stride, dtype and
+device with the module's static arguments, and for each signature it
+holds at most one graph, made in three steps:
 
 * the signature's first call runs eagerly: it fills the weight caches
   (``ops.quant.Versioned``: the packed int8 weights, the static scales),
@@ -18,6 +24,9 @@ static arguments) it holds at most one graph, made in three steps:
 * the second captures the forward on a side stream, then replays it;
 * later calls copy their inputs into the graph's static buffers, replay,
   and return a clone of its output, never a view of the graph's pool.
+
+Each call counts in ``calls`` by how it ran, and runs inside the
+module's span, whose ``graph`` attribute says the same.
 
 A graph is held against every parameter the forward sees at call time
 (those ``functional_call`` swaps in too): each one's object, storage and
@@ -44,6 +53,9 @@ from torch import nn
 
 from ..kernels import WRAPPERS, launch_counts
 from ..ops.quant import Versioned
+from ..parallel import layout
+from ..utils.profiling import annotate
+from .layers import Conv2d, Linear
 
 
 class _Graph:
@@ -60,16 +72,50 @@ class _Graph:
 
 class ForwardGraphs:
     """The CUDA graphs of ``module``'s forward (see the module's
-    docstring).  ``lookup(key)`` says how a call runs, ``capture`` and
-    ``replay`` run it."""
+    docstring).  ``run`` runs a call; ``lookup`` says how, ``capture``
+    and ``replay`` run it."""
 
     def __init__(self, module: nn.Module):
-        self._slots = [(m._parameters, n) for m in module.modules()
-                       for n in m._parameters]
-        self._caches = [v for m in module.modules()
+        mods = tuple(module.modules())
+        self._slots = [(m._parameters, n) for m in mods for n in m._parameters]
+        self._caches = [v for m in mods
                         for v in vars(m).values() if isinstance(v, Versioned)]
+        self._tp_layers = tuple(m for m in mods
+                                if isinstance(m, (Conv2d, Linear)))
         self._graphs: dict[tuple, _Graph] = {}
         self._stream: torch.cuda.Stream | None = None
+        self.calls = dict.fromkeys(("eager", "capture", "replay"), 0)
+
+    def run(self, fn: Callable[..., torch.Tensor],
+            inputs: Sequence[torch.Tensor], *, statics: tuple = (),
+            eager: bool = False, span: str, **attrs) -> torch.Tensor:
+        """``fn(*inputs)``, eagerly, captured or replayed, inside a
+        ``span`` span with ``attrs`` and ``graph`` = how it ran.
+        ``statics``: the other arguments ``fn`` closes over that change
+        what it computes; ``eager``: the module's own reason to run
+        eagerly."""
+        key = None if eager else self.signature(inputs, statics)
+        mode, g = ("eager", None) if key is None else self.lookup(key)
+        self.calls[mode] += 1
+        with annotate(span, graph=mode, **attrs):
+            if mode == "replay":
+                return self.replay(g, inputs)
+            if mode == "capture":
+                return self.capture(g, fn, inputs)
+            return fn(*inputs)
+
+    def signature(self, inputs: Sequence[torch.Tensor],
+                  statics: tuple) -> tuple | None:
+        """The input signature under which a call may replay a graph, or
+        None where it runs eagerly (see the module's docstring)."""
+        if not (all(t.is_cuda for t in inputs)
+                and not torch.is_grad_enabled()
+                and not layout.current().axes()
+                and all(m.tp is None for m in self._tp_layers)
+                and not torch.cuda.is_current_stream_capturing()):
+            return None
+        return tuple((t.shape, t.stride(), t.dtype, t.device)
+                     for t in inputs) + statics
 
     def held(self) -> int:
         """How many graphs are held."""

@@ -91,7 +91,7 @@ from ..kernels.level_mark import level_mark
 from ..ops.quant import Int8Conv, Versioned, gn_static_scale
 from ..parallel import layout
 from ..parallel.collectives import all_gather, all_reduce_sum
-from ..utils.profiling import annotate, recording
+from ..utils.profiling import recording
 from .forward_graph import ForwardGraphs
 from .layers import Conv2d, Linear
 
@@ -359,10 +359,6 @@ class SR3UNet(nn.Module):
 
     time_name = "noise_level_mlp"
     resnet: type[nn.Module] = ResnetBlock
-    # forwards of every instance, by how they ran (``forward``)
-    graph_captures = 0
-    graph_replays = 0
-    eager_calls = 0
 
     @staticmethod
     def time_embedding(dim: int, dtype: torch.dtype) -> nn.Module:
@@ -433,8 +429,6 @@ class SR3UNet(nn.Module):
                     level_ends.append(len(self.plan) - 1)
         self._level_ends = frozenset(level_ends)
         self.final_conv = ConvBlock(ch, out_channel, g, dtype)
-        self._tp_layers = tuple(m for m in self.modules()
-                                if isinstance(m, (Conv2d, Linear)))
         self._graphs = ForwardGraphs(self)
 
     def _add(self, kind: str, name: str, module: nn.Module) -> None:
@@ -465,46 +459,18 @@ class SR3UNet(nn.Module):
         ``quant_min_res`` / ``quant_resample`` select in int8 (serving
         only: rounding has no gradient).
 
-        Where ``_graph_key`` allows, the forward is a CUDA graph
-        (``models/forward_graph.py``): a signature's first call runs
-        eagerly, its second captures the graph and replays it, later ones
-        replay it, each bit-equal to the eager forward.  Each call counts
-        in ``eager_calls``, ``graph_captures`` or ``graph_replays``, and
-        its ``sr3d.unet`` span's ``graph`` says which, and its ``levels``
-        the segments between the forward's level marks."""
-        key = self._graph_key(x, time, deterministic, quant)
-        mode, g = ("eager", None) if key is None else self._graphs.lookup(key)
+        Runs through ``ForwardGraphs.run`` (``models/forward_graph.py``):
+        eagerly where dropout is drawn, its ``sr3d.unet`` span's
+        ``levels`` naming the segments between the forward's level
+        marks."""
         rows = layout.current().rows
         res = x.shape[2] * (1 if rows is None else rows.size)
-        with annotate("sr3d.unet", graph=mode,
-                      levels=level_labels(self.n_levels, res)):
-            if mode == "replay":
-                SR3UNet.graph_replays += 1
-                return self._graphs.replay(g, (x, time))
-            if mode == "capture":
-                SR3UNet.graph_captures += 1
-                return self._graphs.capture(g, lambda x, t: self._forward(
-                    x, t, None, True, False, quant), (x, time))
-            SR3UNet.eager_calls += 1
-            return self._forward(x, time, generator, deterministic, remat,
-                                 quant)
-
-    def _graph_key(self, x: torch.Tensor, time: torch.Tensor,
-                   deterministic: bool, quant: bool) -> tuple | None:
-        """The input signature under which this call may replay a CUDA
-        graph of the forward, or None where it runs eagerly: off CUDA,
-        with grad enabled (training, model3's hand-off), with dropout
-        drawn, where a collective runs inside the forward (a layout with
-        axes, a tensor-parallel layer), or inside another capture."""
-        if not (x.is_cuda and not torch.is_grad_enabled()
-                and not (self.training and not deterministic
-                         and self.dropout > 0.0)
-                and not layout.current().axes()
-                and all(m.tp is None for m in self._tp_layers)
-                and not torch.cuda.is_current_stream_capturing()):
-            return None
-        return (x.shape, x.stride(), x.dtype, x.device, time.shape,
-                time.stride(), time.dtype, quant)
+        return self._graphs.run(
+            lambda x, t: self._forward(x, t, generator, deterministic,
+                                       remat, quant),
+            (x, time), statics=(quant,),
+            eager=self.training and not deterministic and self.dropout > 0.0,
+            span="sr3d.unet", levels=level_labels(self.n_levels, res))
 
     def _forward(self, x: torch.Tensor, time: torch.Tensor,
                  generator: torch.Generator | None, deterministic: bool,

@@ -1044,55 +1044,87 @@ def _eager(unet, x, t, quant):
     return unet._forward(x, t, None, True, None, quant)
 
 
-def _counted(fn):
-    """``fn()``, the kernel wrappers' launches it made, and how the UNet
-    forward ran."""
-    def ran():
-        return (SR3UNet.eager_calls, SR3UNet.graph_captures,
-                SR3UNet.graph_replays)
+def _arcface(seed=0, layers=(3, 13, 30, 3)):
+    """A served ArcFace (iresnet100 by default, bf16 convs): random
+    weights and running statistics away from their 0/1 init, eval, on the
+    card."""
+    from sr3d_torch.models.arcface import BatchNorm, IResNet
+    from sr3d_torch.models.layers import init_lecun_normal_
 
-    before = ran()
+    torch.manual_seed(seed)
+    net = IResNet(layers=layers)
+    init_lecun_normal_(net, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.mean.copy_(torch.randn(m.mean.shape, generator=g) * 0.1)
+                m.var.copy_(torch.rand(m.var.shape, generator=g) + 0.5)
+    return net.eval().requires_grad_(False).cuda()
+
+
+def _blobs(B, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(B, 3, 112, 112, generator=g) * 2 - 1).cuda()
+
+
+def _graphed(name, B, config="sr_sr3_VGGF2_8_32_model3.yml", int8=True):
+    """A served module on the card (``name``: the ``sr3`` or ``ddpm`` UNet
+    of ``config``, or ``arcface``, iresnet100), its inputs of ``B`` faces
+    from a seed, its calls' keyword arguments and its eager forward."""
+    if name == "arcface":
+        net = _arcface()
+        return net, lambda seed: (_blobs(B, seed),), {}, net._forward
+    from sr3d_torch.models.ddpm_unet import DDPMUNet
+
+    unet = _served_unet(config, int8, DDPMUNet if name == "ddpm" else SR3UNet)
+    res = 32 if "8_32" in config else 128
+    return (unet, lambda seed: _unet_inputs(unet, B, res, seed),
+            {"quant": int8}, lambda x, t: _eager(unet, x, t, int8))
+
+
+def _counted(net, fn):
+    """``fn()``, the kernel wrappers' launches it made, and how ``net``'s
+    forward ran."""
+    before = dict(net._graphs.calls)
     reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    after = ran()
-    mode = ("eager", "capture", "replay")[
-        [a - b for a, b in zip(after, before)].index(1)]
+    mode, = [m for m, n in net._graphs.calls.items() if n != before[m]]
     return out, launch_counts(), mode
 
 
-@pytest.mark.parametrize("config,B,int8,cls", [
-    ("sr_sr3_VGGF2_16_128_model3.yml", 8, True, "sr3"),
-    ("sr_sr3_VGGF2_16_128_model3.yml", 8, False, "sr3"),
-    ("sr_sr3_VGGF2_16_128_model3.yml", 32, True, "sr3"),
-    ("sr_sr3_VGGF2_16_128_model3.yml", 32, False, "sr3"),
-    ("sr_sr3_VGGF2_8_32_model3.yml", 8, True, "sr3"),
-    ("sr_sr3_VGGF2_16_128_model3.yml", 8, True, "ddpm"),
-])
-def test_unet_graph_replays_the_eager_forward_bit_for_bit(cuda, config, B,
-                                                         int8, cls):
-    """A served UNet's forward: eager, then captured, then replayed on
-    other inputs, each bit-equal to the eager ``_forward`` on its inputs;
-    each call counts the eager forward's kernel launches; the capture and
-    replays quantize no weight and recompute no cached value; a result is
-    not changed by a later replay (no view of the graph's pool)."""
-    from sr3d_torch.models.ddpm_unet import DDPMUNet
+@pytest.mark.parametrize("name,config,B,int8", [
+    ("sr3", "sr_sr3_VGGF2_16_128_model3.yml", 8, True),
+    ("sr3", "sr_sr3_VGGF2_16_128_model3.yml", 8, False),
+    ("sr3", "sr_sr3_VGGF2_16_128_model3.yml", 32, True),
+    ("sr3", "sr_sr3_VGGF2_16_128_model3.yml", 32, False),
+    ("sr3", "sr_sr3_VGGF2_8_32_model3.yml", 8, True),
+    ("ddpm", "sr_sr3_VGGF2_16_128_model3.yml", 8, True),
+] + [("arcface", None, B, False) for B in (1, 4, 8, 32)])
+def test_graph_replays_the_eager_forward_bit_for_bit(cuda, name, config, B,
+                                                     int8):
+    """A served UNet's or ArcFace's forward: eager, then captured, then
+    replayed on other inputs, each bit-equal to the eager ``_forward`` on
+    its inputs; each call counts the eager forward's kernel launches; the
+    capture and replays quantize no weight and recompute no cached value;
+    a result is not changed by a later replay (no view of the graph's
+    pool)."""
     from sr3d_torch.ops.quant import Versioned
 
-    unet = _served_unet(config, int8, DDPMUNet if cls == "ddpm" else SR3UNet)
-    res = 32 if "8_32" in config else 128
-    caches = [v for m in unet.modules() for v in vars(m).values()
+    net, inputs, kw, eager = _graphed(name, B, config, int8)
+    caches = [v for m in net.modules() for v in vars(m).values()
               if isinstance(v, Versioned)]
-    inputs = [_unet_inputs(unet, B, res, seed) for seed in range(4)]
+    inputs = [inputs(seed) for seed in range(4)]
     outs, counts = [], []
     with torch.no_grad():
-        want = [_eager(unet, x, t, int8) for x, t in inputs]
-        for (x, t), mode in zip(inputs, ("eager", "capture", "replay",
-                                         "replay")):
+        want = [eager(*xs) for xs in inputs]
+        for xs, mode in zip(inputs, ("eager", "capture", "replay",
+                                     "replay")):
             if mode == "capture":
                 quantizes = Int8Conv.weight_quantizes
                 computes = [v.computes for v in caches]
-            out, n, ran = _counted(lambda: unet(x, t, quant=int8))
+            out, n, ran = _counted(net, lambda: net(*xs, **kw))
             assert ran == mode
             outs.append(out)
             counts.append(n)
@@ -1100,29 +1132,42 @@ def test_unet_graph_replays_the_eager_forward_bit_for_bit(cuda, config, B,
         assert [v.computes for v in caches] == computes
     for out, w in zip(outs, want):
         assert out.dtype == w.dtype and torch.equal(out, w)
+    assert name != "arcface" or want[0].dtype == torch.float32
     assert all(c == counts[0] for c in counts), counts
     assert counts[0]["int8_conv"] == (58 if int8 else 0)
-    assert unet._graphs.held() == 1
+    assert net._graphs.held() == 1
 
 
-def test_predictor_request_with_graphs_equals_eager(cuda, monkeypatch):
-    """A served request whose UNet forwards replay graphs gives the
-    request served with every forward eager, bit for bit."""
+@pytest.mark.parametrize("name,replays", [
+    ("unet", 8),                        # 2 chunks × 4 steps
+    ("arcface", 2),                     # 2 chunks
+])
+def test_predictor_request_with_graphs_equals_eager(cuda, monkeypatch, name,
+                                                    replays):
+    """A served request whose UNet or ArcFace forwards replay graphs gives
+    the request served with that module's forwards eager, bit for bit:
+    ``sr_u8``, ``verts``, ``lmk68`` and ``identity``."""
     p, lr = _traced_predictor()
-    replays = SR3UNet.graph_replays
+    p.predict(lr)
+    graphs = getattr(p.modules, name)._graphs
+    before = graphs.calls["replay"]
     got = p.predict(lr)
-    assert SR3UNet.graph_replays - replays == 8      # 2 chunks × 4 steps
-    monkeypatch.setattr(SR3UNet, "_graph_key", lambda *a: None)
+    assert graphs.calls["replay"] - before == replays
+    monkeypatch.setattr(graphs, "signature", lambda *a: None)
     want = p.predict(lr)
-    assert SR3UNet.graph_replays - replays == 8
+    assert graphs.calls["replay"] - before == replays
+    assert set(want) == {"sr_u8", "verts", "lmk68", "identity"}
     for k in want:
         assert (got[k] == want[k]).all(), k
 
 
-def test_unet_graph_recaptures_after_weight_changes(cuda, monkeypatch):
-    """``load_state_dict`` and the EMA's weights under ``functional_call``
-    each start the signature over: eager, captured, replayed, bit-equal
-    to the eager forward of the weights in force; one graph held."""
+@pytest.mark.parametrize("name", ["unet", "arcface"])
+def test_graph_recaptures_after_weight_changes(cuda, monkeypatch, name):
+    """An optimizer step, ``load_state_dict`` and the EMA's weights under
+    ``functional_call`` each start the signature over: eager, captured,
+    replayed, bit-equal to the eager forward of the weights in force; one
+    graph held.  ArcFace's running statistics, updated by a train-mode
+    call, show in the next replay, with no recapture."""
     from torch.func import functional_call
 
     from sr3d_torch.models.layers import init_lecun_normal_
@@ -1135,50 +1180,73 @@ def test_unet_graph_recaptures_after_weight_changes(cuda, monkeypatch):
         init_lecun_normal_(u, torch.Generator().manual_seed(seed))
         return u.eval().cuda()
 
-    unet, x, t = small(0), *_unet_inputs(small(0), 8, 16, 1)
-    ema = {k: v.detach() * 0.9 for k, v in small(1).named_parameters()}
-    other = small(2).state_dict()
+    build = _arcface if name == "arcface" else small
+    net, other = build(0), build(2).state_dict()
+    ema = {k: v.detach() * 0.9 for k, v in build(1).named_parameters()}
+    xs, kw = (((_blobs(8, 0),), {}) if name == "arcface"
+              else (_unet_inputs(net, 8, 16, 1), {"quant": True}))
+    head = list(getattr(net, "fc" if name == "arcface"
+                        else "final_conv").parameters())
+
+    def step():
+        for p in head:
+            p.grad = torch.full_like(p, 1e-3)
+        torch.optim.SGD(head, lr=1.0).step()
+        for p in head:
+            p.grad = None
 
     def eager(call):
         with monkeypatch.context() as m:
-            m.setattr(unet, "_graph_key", lambda *a: None)
+            m.setattr(net._graphs, "signature", lambda *a: None)
             return call()
 
-    plain = lambda: unet(x, t, quant=True)            # noqa: E731
-    swapped = lambda: functional_call(unet, ema, (x, t),  # noqa: E731
-                                      {"quant": True})
+    plain = lambda: net(*xs, **kw)                        # noqa: E731
+    swapped = lambda: functional_call(net, ema, xs, kw)   # noqa: E731
+    wants = []
     with torch.no_grad():
-        for call, change in ((plain, None),
-                             (plain, lambda: unet.load_state_dict(other)),
+        for call, change in ((plain, None), (plain, step),
+                             (plain, lambda: net.load_state_dict(other)),
                              (swapped, None), (plain, None)):
             if change:
                 change()
             want = eager(call)
             modes = []
             for _ in range(3):
-                out, _, mode = _counted(call)
+                out, _, mode = _counted(net, call)
                 modes.append(mode)
                 assert torch.equal(out, want)
             assert modes == ["eager", "capture", "replay"]
-            assert unet._graphs.held() == 1
+            assert net._graphs.held() == 1
+            assert not wants or not torch.equal(want, wants[-1])
+            wants.append(want)
+        if name == "arcface":
+            net.train()                 # stage 4 and the head
+            _, _, mode = _counted(net, lambda: net(_blobs(8, 1)))
+            assert mode == "eager"      # and the statistics updated
+            net.eval()
+            want = eager(plain)
+            out, _, mode = _counted(net, plain)
+            assert mode == "replay" and not torch.equal(want, wants[-1])
+            assert torch.equal(out, want)
 
 
-def test_unet_inside_an_outer_capture_runs_eagerly(cuda):
+@pytest.mark.parametrize("name", ["sr3", "arcface"])
+def test_forward_inside_an_outer_capture_runs_eagerly(cuda, name):
     """Inside another CUDA graph's capture (``chip_smoke.py``'s
     ``device_ms``) the forward runs eagerly, and the outer graph replays
     it."""
-    unet = _served_unet("sr_sr3_VGGF2_8_32_model3.yml", True)
-    x, t = _unet_inputs(unet, 8, 32, 0)
+    net, inputs, kw, eager = _graphed(name, 8)
+    xs = inputs(0)
     with torch.no_grad():
-        want = _eager(unet, x, t, True)
+        want = eager(*xs)
         for _ in range(3):                  # eager, capture, replay
-            unet(x, t, quant=True)
+            net(*xs, **kw)
         torch.cuda.synchronize()
         g = torch.cuda.CUDAGraph()
-        eager = SR3UNet.eager_calls
+        n = net._graphs.calls["eager"]
         with torch.cuda.graph(g):
-            y = unet(x, t, quant=True)
-        assert SR3UNet.eager_calls == eager + 1
+            y = net(*xs, **kw)
+        assert net._graphs.calls["eager"] == n + 1
         g.replay()
         torch.cuda.synchronize()
     assert torch.equal(y, want)
@@ -1213,7 +1281,7 @@ def test_replayed_forward_shows_every_kernel_in_a_device_trace(cuda,
     eager = traced(lambda: _eager(unet, x, t, True))
     capture = traced(lambda: unet(x, t, quant=True))
     replay = traced(lambda: unet(x, t, quant=True))
-    assert SR3UNet.graph_replays > 0 and unet._graphs.held() == 1
+    assert unet._graphs.calls["replay"] > 0 and unet._graphs.held() == 1
     # a kernel event of the eager forward may go missing from a trace, a
     # launch call does not
     assert replay["kernels"] == eager["launches"] >= 400, (eager, replay)
@@ -1279,130 +1347,7 @@ def test_replay_holds_the_level_marks_its_levels_name(cuda, tmp_path,
     assert launches <= 4, launches
 
 
-# -- the MICA branch without waits: ArcFace's forward as a CUDA graph ----
-
-def _arcface(seed=0, layers=(3, 13, 30, 3)):
-    """A served ArcFace (iresnet100 by default, bf16 convs): random
-    weights and running statistics away from their 0/1 init, eval, on the
-    card."""
-    from sr3d_torch.models.arcface import BatchNorm, IResNet
-    from sr3d_torch.models.layers import init_lecun_normal_
-
-    torch.manual_seed(seed)
-    net = IResNet(layers=layers)
-    init_lecun_normal_(net, torch.Generator().manual_seed(seed))
-    g = torch.Generator().manual_seed(seed + 1)
-    with torch.no_grad():
-        for m in net.modules():
-            if isinstance(m, BatchNorm):
-                m.mean.copy_(torch.randn(m.mean.shape, generator=g) * 0.1)
-                m.var.copy_(torch.rand(m.var.shape, generator=g) + 0.5)
-    return net.eval().requires_grad_(False).cuda()
-
-
-def _blobs(B, seed):
-    g = torch.Generator().manual_seed(seed)
-    return (torch.rand(B, 3, 112, 112, generator=g) * 2 - 1).cuda()
-
-
-def _arcface_call(net, x):
-    """``net(x)`` and how its forward ran."""
-    from sr3d_torch.models.arcface import IResNet
-
-    def ran():
-        return (IResNet.eager_calls, IResNet.graph_captures,
-                IResNet.graph_replays)
-
-    before = ran()
-    out = net(x)
-    torch.cuda.synchronize()
-    mode = ("eager", "capture", "replay")[
-        [a - b for a, b in zip(ran(), before)].index(1)]
-    return out, mode
-
-
-@pytest.mark.parametrize("B", [1, 4, 8, 32])
-def test_arcface_graph_replays_the_eager_forward_bit_for_bit(cuda, B):
-    """iresnet100's forward: eager, then captured, then replayed on other
-    blobs, each bit-equal to the eager ``_forward`` on its blobs; a result
-    is not changed by a later replay (no view of the graph's pool)."""
-    net = _arcface()
-    blobs = [_blobs(B, seed) for seed in range(4)]
-    with torch.no_grad():
-        want = [net._forward(x) for x in blobs]
-        outs = []
-        for x, mode in zip(blobs, ("eager", "capture", "replay", "replay")):
-            out, ran = _arcface_call(net, x)
-            assert ran == mode
-            outs.append(out)
-    for out, w in zip(outs, want):
-        assert out.dtype == w.dtype == torch.float32 and torch.equal(out, w)
-    assert net._graphs.held() == 1
-
-
-def test_arcface_graph_follows_the_weights_and_statistics(cuda):
-    """An optimizer step and ``load_state_dict`` each start the signature
-    over (eager, captured, replayed), bit-equal to the eager forward of
-    the weights in force; a train-mode BatchNorm update of the running
-    statistics shows in the next replay, with no recapture."""
-    net, other = _arcface(0), _arcface(1).state_dict()
-    x = _blobs(8, 0)
-    head = [p for n, p in net.named_parameters() if n.startswith("fc.")]
-
-    def step():
-        for p in head:
-            p.requires_grad_(True)
-            p.grad = torch.full_like(p, 1e-3)
-        torch.optim.SGD(head, lr=1.0).step()
-        for p in head:
-            p.requires_grad_(False)
-            p.grad = None
-
-    with torch.no_grad():
-        first = None
-        for change in (None, step, lambda: net.load_state_dict(other)):
-            if change:
-                change()
-            want = net._forward(x)
-            modes = []
-            for _ in range(3):
-                out, mode = _arcface_call(net, x)
-                modes.append(mode)
-                assert torch.equal(out, want)
-            assert modes == ["eager", "capture", "replay"]
-            assert first is None or not torch.equal(want, first)
-            first = want
-            assert net._graphs.held() == 1
-        net.train()                     # stage 4 and the head
-        _, mode = _arcface_call(net, _blobs(8, 1))
-        assert mode == "eager"          # and the statistics updated
-        net.eval()
-        want = net._forward(x)
-        out, mode = _arcface_call(net, x)
-    assert mode == "replay" and not torch.equal(want, first)
-    assert torch.equal(out, want)
-
-
-def test_arcface_inside_an_outer_capture_runs_eagerly(cuda):
-    """Inside another CUDA graph's capture the forward runs eagerly, and
-    the outer graph replays it."""
-    from sr3d_torch.models.arcface import IResNet
-
-    net, x = _arcface(layers=(1, 1, 1, 1)), _blobs(4, 0)
-    with torch.no_grad():
-        want = net._forward(x)
-        for _ in range(3):                  # eager, capture, replay
-            net(x)
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        eager = IResNet.eager_calls
-        with torch.cuda.graph(g):
-            y = net(x)
-        assert IResNet.eager_calls == eager + 1
-        g.replay()
-        torch.cuda.synchronize()
-    assert torch.equal(y, want)
-
+# -- the MICA branch without waits --------------------------------------
 
 def test_served_request_waits_on_the_device_only_to_fetch(cuda, monkeypatch):
     """Once two requests have warmed it (the resize matrices and FLAME's
@@ -1411,7 +1356,6 @@ def test_served_request_waits_on_the_device_only_to_fetch(cuda, monkeypatch):
     every sampler step, the hand-off, ArcFace, the mapping, FLAME and the
     landmarks run under ``set_sync_debug_mode("error")``."""
     from sr3d_torch import serve
-    from sr3d_torch.models.arcface import IResNet
 
     p, lr = _traced_predictor()
     p.predict(lr)
@@ -1429,34 +1373,15 @@ def test_served_request_waits_on_the_device_only_to_fetch(cuda, monkeypatch):
 
     monkeypatch.setattr(p, "_prep_cond", prep_then_error)
     monkeypatch.setattr(serve, "annotate", fetch_allowed)
-    replays = IResNet.graph_replays
+    graphs = p.modules.arcface._graphs
+    replays = graphs.calls["replay"]
     try:
         got = p.predict(lr)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert IResNet.graph_replays - replays == 2        # 2 chunks
+    assert graphs.calls["replay"] - replays == 2        # 2 chunks
     monkeypatch.undo()
     assert all((got[k] == v).all() for k, v in p.predict(lr).items())
-
-
-def test_predictor_request_with_arcface_graph_equals_eager(cuda,
-                                                           monkeypatch):
-    """A served request whose ArcFace forwards replay a graph gives the
-    request served with ArcFace eager, bit for bit: ``sr_u8``, ``verts``,
-    ``lmk68`` and ``identity``."""
-    from sr3d_torch.models.arcface import IResNet
-
-    p, lr = _traced_predictor()
-    p.predict(lr)
-    replays = IResNet.graph_replays
-    got = p.predict(lr)
-    assert IResNet.graph_replays - replays == 2        # 2 chunks
-    monkeypatch.setattr(IResNet, "_graph_key", lambda *a: None)
-    want = p.predict(lr)
-    assert IResNet.graph_replays - replays == 2
-    assert set(want) == {"sr_u8", "verts", "lmk68", "identity"}
-    for k in want:
-        assert (got[k] == want[k]).all(), k
 
 
 def test_resize_on_the_card_copies_each_matrix_once(cuda):

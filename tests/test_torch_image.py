@@ -1,11 +1,14 @@
 """The port's image ops held against the JAX package (``jax.image.resize``
-and ``sr3d_tpu.ops.image``) on the same numpy inputs, on the CPU."""
+and ``sr3d_tpu.ops.image``) on the same numpy inputs, on the CPU; and the
+resize's matrices and FLAME's joint-tree indices kept on the device, with
+the meta device standing in for the card."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sr3d_torch.models import lbs
 from sr3d_torch.ops import image as ti
 from sr3d_tpu.ops import image as ji
 
@@ -74,3 +77,55 @@ def test_uint8_and_degrade_pair_match_jax():
     np.testing.assert_allclose(cond.numpy(), np.asarray(cond_ref), atol=ATOL)
     with pytest.raises(KeyError):
         ti.resize(torch.from_numpy(x), 8, 8, "lanczos")
+
+
+def _old_resize(x, height, width, method, antialias):
+    """``resize`` as it was: each matrix copied from host memory at every
+    call."""
+    B, H, W, C = x.shape
+    x = x.float()
+    if H != height:
+        wh = torch.from_numpy(ti._weight_matrix(H, height, method,
+                                                antialias))
+        x = torch.einsum("oh,bhwc->bowc", wh.to(x.device), x)
+    if W != width:
+        ww = torch.from_numpy(ti._weight_matrix(W, width, method,
+                                                antialias))
+        x = torch.einsum("pw,bowc->bopc", ww.to(x.device), x)
+    return x
+
+
+@pytest.mark.parametrize("method", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("size", [(24, 16), (16, 9), (9, 24)])
+def test_resize_is_bit_equal_to_the_copying_path(method, antialias, size,
+                                                 monkeypatch):
+    """Up and down, along either axis and both: the CPU path, and the
+    device path's cached matrices (here on the CPU), give the old path's
+    values bit for bit."""
+    x = torch.rand(2, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+    want = _old_resize(x, *size, method, antialias)
+    assert torch.equal(ti.resize(x, *size, method, antialias), want)
+    monkeypatch.setattr(ti, "_weights", lambda *k: ti._on_device(*k))
+    assert torch.equal(ti.resize(x, *size, method, antialias), want)
+
+
+def test_the_device_cache_is_keyed_by_device_and_never_filled_on_the_cpu():
+    ti._on_device.cache_clear()
+    ti.resize(torch.rand(1, 16, 16, 3), 32, 32, "bicubic")
+    cpu = ti._weights(16, 32, "bicubic", False, torch.device("cpu"))
+    assert ti._on_device.cache_info().currsize == 0
+    meta = ti._weights(16, 32, "bicubic", False, torch.device("meta"))
+    assert meta.device.type == "meta" and meta.shape == cpu.shape
+    assert meta is ti._weights(16, 32, "bicubic", False,
+                               torch.device("meta"))
+    assert ti._on_device.cache_info().currsize == 1
+    # the same matrix on another device is another entry
+    on_cpu = ti._on_device(16, 32, "bicubic", False, torch.device("cpu"))
+    assert torch.equal(on_cpu, cpu)
+    assert ti._on_device.cache_info().currsize == 2
+    # FLAME's joint-tree index: one copy a device, the list's values
+    joints = torch.rand(2, 5, 3)
+    idx = lbs.index_on((0, 1, 1, 1), joints.device)
+    assert idx is lbs.index_on((0, 1, 1, 1), torch.device("cpu"))
+    assert torch.equal(joints[:, idx], joints[:, [0, 1, 1, 1]])
