@@ -27,7 +27,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    forward with the plain attention, both timed; the int8 conv bit for bit at every
    distinct int8 conv of the serving CLI's UNet forward (a meta-device
    trace, B = 8, bf16; its tensor-core path, the plan printed), in fp32 at
-   both strides and scale kinds and at shapes of its first-version path,
+   both strides and scale kinds, at shapes of its first-version path and
+   at the 8->32 UNet's short-row convs (its short-row path),
    timed on the cached path (weights quantized beforehand) and cold
    against im2col + ``torch._int_mm`` and cuDNN's bf16 conv; GN+Swish,
    attention and the int8 conv at every other shape of every
@@ -1007,20 +1008,32 @@ def main_path_int8_convs() -> list[tuple]:
 
 
 # the int8 conv's first-version path (int8_plan's "mma"): ragged channel
-# counts, a W whose rows are no multiple of 16 bytes, fp32 in; (B, Cin, H,
-# W, O, stride, scale, dtype)
+# counts, a W whose rows are no multiple of 16 bytes on images of more than
+# 128 output pixels, fp32 in; (B, Cin, H, W, O, stride, scale, dtype)
 INT8_FIRST_VERSION = ((8, 40, 64, 64, 24, 1, "static", torch.bfloat16),
                       (2, 32, 16, 16, 32, 2, "dynamic", torch.bfloat16),
-                      (1, 64, 9, 13, 64, 1, "static", torch.bfloat16),
+                      (1, 64, 12, 13, 64, 1, "static", torch.bfloat16),
                       (4, 96, 32, 32, 48, 1, "dynamic", torch.float32))
+# its short-row path (int8_plan's "deep"): the 8->32 UNet's convs at the 4²
+# and 2² levels (B = 8), an odd W
+INT8_SHORT_ROW = ((8, 512, 2, 2, 512, 1, "static", torch.bfloat16),
+                  (8, 1024, 2, 2, 512, 1, "static", torch.bfloat16),
+                  (8, 256, 4, 4, 512, 1, "static", torch.bfloat16),
+                  (8, 512, 4, 4, 512, 1, "static", torch.bfloat16),
+                  (8, 512, 4, 4, 512, 1, "dynamic", torch.bfloat16),
+                  (8, 512, 4, 4, 512, 2, "dynamic", torch.bfloat16),
+                  (8, 1024, 4, 4, 512, 1, "static", torch.bfloat16),
+                  (8, 768, 4, 4, 512, 1, "static", torch.bfloat16),
+                  (1, 64, 9, 13, 64, 1, "static", torch.bfloat16))
 
 
 def phase_int8_conv(dev) -> dict:
     """The int8 conv kernels against their plain version, bit for bit, at
     every distinct int8 conv of the serving CLI's UNet forward (bf16 in
     and out, B = 8; int8_plan's tensor-core path), at fp32 in and every
-    (stride, scale) pair, and at shapes on the first-version path; each
-    shape's plan printed.  Each shape timed on the cached path (weights
+    (stride, scale) pair, at shapes on the first-version path and at the
+    8->32 UNet's short-row convs (the short-row path); each shape's plan
+    printed.  Each shape timed on the cached path (weights
     quantized and packed beforehand, as ``Int8Conv`` keeps them: one
     launch) and cold (``int8_conv``, the weights quantized first), against
     its plain version, the library route (im2col + ``torch._int_mm`` on the
@@ -1057,7 +1070,8 @@ def phase_int8_conv(dev) -> dict:
              for st in (1, 2) for sc in ("static", "dynamic")]
     cases = ([c + (torch.bfloat16, "wgmma") for c in shapes]
              + [c + ("wgmma",) for c in extra]
-             + [c + ("mma",) for c in INT8_FIRST_VERSION])
+             + [c + ("mma",) for c in INT8_FIRST_VERSION]
+             + [c + ("deep",) for c in INT8_SHORT_ROW])
 
     def library(x, wq, ws, b, stride, a):
         """im2col + torch._int_mm: the library's int8 route, on weights
@@ -1139,7 +1153,7 @@ def phase_int8_conv(dev) -> dict:
                 reps=5)
         tile = (f"{plan.images}x{plan.rows}x{plan.tile_w} px x {plan.bn}, "
                 f"{plan.ctas} CTAs"
-                if plan.path == "wgmma" else "64 x 64")
+                if plan.path != "mma" else "64 x 64")
         print(f"  int8_conv {_dtype_name(dtype)} x={[B, C, H, W]}->{O} "
               f"stride {stride} {scale} scale: {plan.path} ({tile}, "
               f"splits {plan.splits}), bit-equal to plain, cached and cold; "

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``) and their wrappers.
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
-its kernel for a CUDA tensor, and counts its launches in ``.launches``.
+its kernel for a CUDA tensor, and counts its launches in ``.launches``
+(``int8_conv`` also by plan path, in ``.path_launches``).
 """
 
 from .attention import spatial_attention
@@ -24,3 +25,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    int8_conv.path_launches = dict.fromkeys(int8_conv.path_launches, 0)

@@ -42,7 +42,7 @@
 // halo).  PERF.md has the numbers; the quantize fused into the GroupNorm
 // that feeds most of these convs is the way past it.
 //
-// Two kernels; the wrapper's plan (int8_plan in int8_conv.py) picks one by
+// Three kernels; the wrapper's plan (int8_plan in int8_conv.py) picks one by
 // shape, never by failure:
 //
 // int8_conv3x3_wgmma_kernel<Tin, Tout, BN, MW>: Cin % 64 == 0, O % 64 ==
@@ -94,6 +94,37 @@
 //   memory, and the chunk's weights for all nine taps; then nine k = 32
 //   steps, one a tap, of mma.sync read straight from the patch; the
 //   epilogue writes NCHW.
+
+// int8_conv3x3_deep_kernel<Tin, Tout> (plan "deep"): Cin % 64 == 0, O % 64
+//   == 0, a row of x that is no multiple of 16 bytes (no TMA box: the 4^2
+//   and 2^2 levels of the 8->32 UNet in bf16) and whole output images of at
+//   most 128 pixels.  What bounds these convs is the weights: at [8, 512,
+//   4, 4] -> 512 the int8 weights are 2.36 MB against 0.26 MB of
+//   activations and 0.6 GOP (0.78 us at 3.35 TB/s, 0.3 us at 1979 TOPS);
+//   M = B * Ho * Wo is 128 or 32 rows.  So the kernel spreads the weight
+//   stream over many SMs, and what is left is a chain of latencies:
+//   * Tiles: every output pixel of IMGS whole images (<= 128, one or two
+//     m64 products) by 64 output channels: O / 64 tiles a batch of images.
+//   * K split: K is 9 Cin / 64 (tap, 64-channel chunk) units; a cluster of
+//     up to 8 CTAs a tile shares them, chunk-major: 8 x 8 = 64 CTAs at B =
+//     8, one an SM (16 clusters of 8 CTAs of 32 channels were one more than
+//     the card co-schedules, and the last shared SMs).  Each CTA streams its
+//     9 (18 at Cin 1024) [64 x 64] weight tiles through a TMA ring of 16
+//     (64-byte swizzle), all in flight at once (warp 8).
+//   * x without TMA: the 64 channels of a chunk are one contiguous run of
+//     an image (NCHW), fetched by 16-byte cp.async (the next chunk's while
+//     this one's products run), then quantized (quantize_fast) pixel-major
+//     into a padded band (80-byte pixels; the halo is zeroed once), only the
+//     chunks the split's units touch.
+//   * Products: wgmma m64n64k32 .s32.s8.s8, A by ldmatrix.x4 at each lane's
+//     shifted band pixel, as in the tensor-core kernel; one warpgroup where
+//     the tile has at most 64 pixels.
+//   * The splits' int32 partials are stored straight into the shared memory
+//     of the rank that finishes their channels (exact in any order); after
+//     one cluster barrier each rank sums and dequantizes its own.
+//   A launch at [8, 512, 4, 4] takes ~10 us: 0.8 set-up, 0.5 x's load, 1.8
+//   quantize, 2.3 for 9 taps, 2.0 push and barrier, 1.3 sum and store
+//   (per-CTA globaltimer stamps; PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda symbol
@@ -1079,6 +1110,363 @@ int launch_tc_tile(const void* x, const void* wq, const void* a_scale,
                                      blocks, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Short-row path: weight-streaming s8 wgmma over whole images, K split
+// ---------------------------------------------------------------------------
+
+// Roles by warp: 0-7 (two warpgroups) load and quantize x into the band and
+// run the products, 8 streams the weight tiles (one lane).
+constexpr int kDeepThreads = 288;
+constexpr int kDeepProductThreads = 256;
+constexpr int kDeepBN = 64;       // output channels a CTA
+constexpr int kDeepStages = 16;   // its ring of weight tiles: at the deep
+// levels all of a split's tiles in flight (9 a CTA; 18 at Cin 1024)
+// Each split's int32 partials land in the shared memory of the rank that
+// finishes their channels: [splits][128 pixels][the rank's channels], for
+// any splits <= 8 (the most at 6: 6 x 128 x 12 x 4 bytes)
+constexpr int kDeepRecv = 36864;
+
+// The geometry of one launch (int8_plan's "deep" plan in int8_conv.py):
+// IMGS whole images a tile, their padded bands BH x BW pixels each.
+struct DeepShape {
+  int B, Cin, H, W, O, Ho, Wo, stride;
+  int IMGS, BH, BW, splits, n_tiles, units, q_bytes, raw_bytes;
+};
+
+// The product warps (warps 0-7) alone.
+__device__ __forceinline__ void product_warps_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kDeepProductThreads) : "memory");
+}
+
+// The cluster barrier in two halves: this thread has arrived (no ordering),
+// and every thread of the cluster had arrived.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Channels [c0, c0 + 64) of the tile's `imgs` images, one contiguous run an
+// image in NCHW, into `raw` as they lie: 16-byte cp.async copies, all in
+// flight at once, one commit group.
+template <typename Tin>
+__device__ __forceinline__ void load_raw(const Tin* __restrict__ x,
+                                         uint8_t* raw, const DeepShape& s,
+                                         int b0, int imgs, int c0, int tid) {
+  const int hw = s.H * s.W;
+  const int per = kChunk * hw * (int)sizeof(Tin) / 16;  // copies an image
+  for (int v = tid; v < imgs * per; v += kDeepProductThreads) {
+    const int i = v / per;
+    const uint8_t* src =
+        reinterpret_cast<const uint8_t*>(
+            x + ((int64_t)(b0 + i) * s.Cin + c0) * hw) +
+        16 * (v - i * per);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(raw + 16 * v)),
+                 "l"(src)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The raw chunk (channel-major, as load_raw left it) into the pixel-major
+// int8 band: a unit is one pixel by 8 channels, quantized without a branch
+// (quantize_fast), the ties fixed by the true division, 8 bytes written at
+// the pixel's place inside its image's halo, which stays zero.  A tie is
+// ~1 element in 2000 at a served model's steps, so its loop is not
+// unrolled (one division's code); a round step on bf16 inputs, such as
+// 0.05, ties ~4% of elements and triples the quantize's time.
+template <typename Tin>
+__device__ __forceinline__ void quantize_band(const Tin* raw, uint8_t* band,
+                                              const DeepShape& s, int imgs,
+                                              float r, float a, int tid) {
+  const int hw = s.H * s.W, pixels = imgs * hw;
+  for (int u = tid; u < pixels * 8; u += kDeepProductThreads) {
+    const int g = u / pixels, p = u - g * pixels;
+    const int i = p / hw, rem = p - i * hw;
+    const int h = rem / s.W, w = rem - h * s.W;
+    const Tin* src = raw + (i * kChunk + 8 * g) * hw + rem;
+    uint32_t q[2] = {0u, 0u}, tie = 0u;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      q[e >> 2] |= quantize_fast(to_f<Tin>(src[e * hw]), r, tie, e)
+                   << (8 * (e & 3));
+    uint64_t qq = ((uint64_t)q[1] << 32) | q[0];
+#pragma unroll 1
+    for (int e = 0; tie >> e; ++e)
+      if (tie & (1u << e))
+        qq = (qq & ~(0xffull << (8 * e))) |
+             ((uint64_t)quantize_exact(to_f<Tin>(src[e * hw]), a) << (8 * e));
+    const int bp = (i * s.BH + h + 1) * s.BW + w + 1;
+    *reinterpret_cast<uint64_t*>(band + bp * kPix + 8 * g) = qq;
+  }
+}
+
+// One tap's products: its weight tile waited for, the two k-steps (32
+// channels each) issued and committed; then, once the group before has
+// finished, that tap's ring slot released and the next tap's A fragments
+// loaded into the registers it used.
+__device__ __forceinline__ void deep_tap(int (&acc)[kDeepBN / 2],
+                                         const uint32_t (&af)[1][2][4],
+                                         uint32_t (&af_next)[1][2][4],
+                                         uint8_t* sW, uint64_t* w_full,
+                                         uint64_t* w_empty, int w_use,
+                                         bool release, int next_tap,
+                                         uint32_t qb, const int (&centre)[1],
+                                         int BW, int khalf, int lane) {
+  const int slot = w_use % kDeepStages;
+  mbar_wait(&w_full[slot], (w_use / kDeepStages) & 1);
+  const uint64_t desc = sw64_k_desc(sW + slot * kDeepBN * 64);
+  wgmma_fence();
+  // k-step ks starts 32 bytes further along the rows
+  wgmma_s8_n64(acc, af[0][0], desc);
+  wgmma_s8_n64(acc, af[0][1], desc + 2);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_acc(acc);
+  if (release && lane == 0)
+    mbar_arrive(&w_empty[(w_use - 1) % kDeepStages]);
+  if (next_tap >= 0)
+    load_a<1>(af_next, qb, centre, (next_tap / 3) * BW + next_tap % 3, khalf);
+}
+
+// One CTA per (tile, K split); the splits of a tile form one cluster.  A
+// tile is IMGS whole images (at most 128 output pixels, one or two m64
+// products) by kDeepBN output channels.  A split takes the (chunk, tap)
+// units [u_lo, u_hi) of K, chunk-major, and streams one [64 x 64] weight
+// tile a unit through a ring that holds them all at the deep levels.  Each
+// chunk its units touch is loaded (the next one while the products of this
+// one run), quantized once into the band, then multiplied tap by tap.
+// The splits' int32 partials go straight into the shared memory of the
+// rank that finishes their channels, which sums them there.  Shared
+// memory: the weight ring, the band, the raw chunk, the received
+// partials, then the barriers.
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kDeepThreads, 1)
+    int8_conv3x3_deep_kernel(const Tin* __restrict__ x,
+                             const __grid_constant__ CUtensorMap wmap,
+                             const float* __restrict__ a_scale_p,
+                             const float* __restrict__ w_scale,
+                             const float* __restrict__ bias,
+                             Tout* __restrict__ out, const DeepShape s) {
+  constexpr int BN = kDeepBN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* sW = smem;
+  uint8_t* band = sW + kDeepStages * BN * 64;
+  uint8_t* raw = band + s.q_bytes;
+  int32_t* recv = reinterpret_cast<int32_t*>(raw + s.raw_bytes);
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(recv + kDeepRecv / 4);
+  uint64_t* w_empty = w_full + kDeepStages;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank();
+  const int tile = blockIdx.x / s.splits;
+  const int n0 = (tile % s.n_tiles) * BN;
+  const int b0 = (tile / s.n_tiles) * s.IMGS;
+  const int imgs = min(s.IMGS, s.B - b0);
+  const int hwo = s.Ho * s.Wo, M = imgs * hwo;  // the tile's output pixels
+  const int pwarps = M > 64 ? 8 : 4;  // warps with rows to multiply
+  const int u_lo = split * s.units / s.splits;
+  const int u_hi = (split + 1) * s.units / s.splits;
+  const int c_lo = u_lo / 9, c_hi = (u_hi - 1) / 9 + 1;  // chunks touched
+  // rank r finishes the channel pairs [r * 32 / splits, (r + 1) * 32 /
+  // splits): at most cmax channels
+  const int cmax = 2 * ((BN / 2 + s.splits - 1) / s.splits);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the first chunk of x on its way while the barriers and the band are set
+  if (warp < 8) load_raw<Tin>(x, raw, s, b0, imgs, c_lo * kChunk, tid);
+  if (tid == 0) {
+    for (int i = 0; i < kDeepStages; ++i) {
+      mbar_init(&w_full[i], 1);
+      mbar_init(&w_empty[i], pwarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the band's halo (and any image past the batch) stays zero: the padding
+  for (int i = tid; i < s.q_bytes / 16; i += kDeepThreads)
+    reinterpret_cast<uint4*>(band)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  // no CTA writes into another's shared memory before all have started
+  cluster_arrive_relaxed();
+
+  if (warp == 8) {
+    if (lane == 0) {
+      // unit u is tap u % 9 of chunk u / 9: column tap * Cin + 64 chunk
+      for (int u = u_lo, use = 0; u < u_hi; ++u, ++use) {
+        const int slot = use % kDeepStages;
+        mbar_wait(&w_empty[slot], ((use / kDeepStages) & 1) ^ 1);
+        mbar_expect(&w_full[slot], BN * 64);
+        tma_load_2d(sW + slot * BN * 64, &wmap, &w_full[slot],
+                    (u % 9) * s.Cin + (u / 9) * kChunk, n0);
+      }
+    }
+    __syncwarp();
+    cluster_wait();
+  } else {
+    // This lane's A rows (as in the tensor-core kernel: ldmatrix.x4 lanes
+    // 0-7 / 8-15 / 16-23 / 24-31 give rows 0-7 / 8-15 / 0-7 / 8-15 of the
+    // warp's 16, bytes +0 / +0 / +16 / +16 of a k-step) and their band
+    // pixels at tap (0, 0).
+    const int wg = warp >> 2, khalf = lane >> 4;
+    const bool active = warp < pwarps;
+    int centre[1];
+    {
+      const int p = wg * 64 + (warp & 3) * 16 + (lane & 7) +
+                    ((lane >> 3) & 1) * 8;
+      const int i = p / hwo, rem = p - i * hwo, ho = rem / s.Wo;
+      centre[0] = p < M ? (i * s.BH + ho * s.stride) * s.BW +
+                              (rem - ho * s.Wo) * s.stride
+                        : 0;  // outside the tile: any band pixel
+    }
+    const float a = *a_scale_p, r = __frcp_rn(a);
+    // two sums, taps alternating; added (exactly) at the end
+    int acc[2][BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[0][i] = acc[1][i] = 0;
+    int w_use = 0;
+    for (int c = c_lo; c < c_hi; ++c) {
+      // chunk c has landed (this thread's copies, then everyone's), and
+      // every product warp is done with the band's previous chunk
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      product_warps_sync();
+      quantize_band<Tin>(reinterpret_cast<const Tin*>(raw), band, s, imgs, r,
+                         a, tid);
+      product_warps_sync();  // the band is whole, the raw chunk free
+      if (c + 1 < c_hi)
+        load_raw<Tin>(x, raw, s, b0, imgs, (c + 1) * kChunk, tid);
+      if (!active) continue;
+      const int t_lo = max(u_lo - 9 * c, 0), t_hi = min(u_hi - 9 * c, 9);
+      const uint32_t qb = smem_u32(band);
+      // tap t's products run while tap t - 1's finish and tap t + 1's
+      // fragments load; a loop of two taps (unrolled over nine, or with
+      // every tap in flight and one wait, it measured no faster)
+      uint32_t af[2][1][2][4];
+      load_a<1>(af[0], qb, centre, (t_lo / 3) * s.BW + t_lo % 3, khalf);
+#pragma unroll 1
+      for (int t = t_lo; t < t_hi; t += 2) {
+        deep_tap(acc[0], af[0], af[1], sW, w_full, w_empty, w_use++,
+                 t > t_lo, t + 1 < t_hi ? t + 1 : -1, qb, centre, s.BW,
+                 khalf, lane);
+        if (t + 1 < t_hi)
+          deep_tap(acc[1], af[1], af[0], sW, w_full, w_empty, w_use++, true,
+                   t + 2 < t_hi ? t + 2 : -1, qb, centre, s.BW, khalf, lane);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (lane == 0) mbar_arrive(&w_empty[(w_use - 1) % kDeepStages]);
+    }
+    // this split's partials, channel pair by channel pair, into the rank
+    // that finishes them: [split][pixel][its channels]
+    cluster_wait();
+    if (active) {
+      const int q = lane & 3;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int pr = 4 * j + q;  // channels 2 pr, 2 pr + 1
+        const int r = ((pr + 1) * s.splits + BN / 2 - 1) / (BN / 2) - 1;
+        int32_t* dst = cluster.map_shared_rank(recv, r) +
+                       2 * (pr - r * (BN / 2) / s.splits);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int pix = wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * half;
+          const int i = 4 * j + 2 * half;
+          *reinterpret_cast<int2*>(dst + (split * 128 + pix) * cmax) =
+              make_int2(acc[0][i] + acc[1][i], acc[0][i + 1] + acc[1][i + 1]);
+        }
+      }
+    }
+  }
+  // This rank's channels: the splits' int32 partials summed (exact, in
+  // any order) from its own shared memory, one dequant in JAX's order.
+  // No CTA reads another's shared memory after the barrier: none waits to
+  // leave.  A thread's first channel step and bias are loaded before it.
+  const int ch0 = 2 * (split * (BN / 2) / s.splits);
+  const int cw = 2 * ((split + 1) * (BN / 2) / s.splits) - ch0;
+  const int units = cw * ((M + 3) / 4);
+  const float a = *a_scale_p;
+  float sc = 0.f, bi = 0.f;
+  if (tid < units) {
+    sc = __fmul_rn(a, w_scale[n0 + ch0 + tid % cw]);
+    if (bias != nullptr) bi = bias[n0 + ch0 + tid % cw];
+  }
+  cluster.sync();  // every split's partials have landed
+  for (int u = tid; u < units; u += kDeepThreads) {
+    const int g = u / cw, c = u - g * cw;  // 4 pixels of channel ch0 + c
+    int sum[4] = {0, 0, 0, 0};
+    for (int sp = 0; sp < s.splits; ++sp) {
+      const int32_t* src = recv + (sp * 128 + 4 * g) * cmax + c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[e] += src[e * cmax];
+    }
+    const int nn = n0 + ch0 + c;
+    if (u != tid) {
+      sc = __fmul_rn(a, w_scale[nn]);
+      if (bias != nullptr) bi = bias[nn];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = 4 * g + e;
+      if (p >= M) break;
+      float o = __fmul_rn(__int2float_rn(sum[e]), sc);
+      if (bias != nullptr) o = __fadd_rn(o, bi);
+      const int i = p / hwo;
+      out[((int64_t)(b0 + i) * s.O + nn) * hwo + (p - i * hwo)] =
+          from_f<Tout>(o);
+    }
+  }
+}
+
+int deep_smem(int npix, int raw_bytes, int* q_bytes) {
+  *q_bytes = align_up(npix * kPix, 1024);
+  return 1024 + kDeepStages * kDeepBN * 64 + *q_bytes + raw_bytes +
+         kDeepRecv + 2 * kDeepStages * 8;
+}
+
+template <typename Tin, typename Tout>
+int launch_deep(const void* x, const void* wq, const void* a_scale,
+                const void* w_scale, const void* bias, void* out, DeepShape s,
+                int blocks, cudaStream_t stream) {
+  auto kernel = int8_conv3x3_deep_kernel<Tin, Tout>;
+  s.raw_bytes = s.IMGS * kChunk * s.H * s.W * (int)sizeof(Tin);
+  const int smem = deep_smem(s.IMGS * s.BH * s.BW, s.raw_bytes, &s.q_bytes);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  CUtensorMap wmap;
+  const cuuint64_t wdims[2] = {(cuuint64_t)9 * s.Cin, (cuuint64_t)s.O};
+  const cuuint32_t wbox[2] = {64, kDeepBN};
+  if (!encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wq, 2, wdims, wbox,
+                  CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorNotSupported;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kDeepThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)s.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const Tin*>(x), wmap,
+      static_cast<const float*>(a_scale), static_cast<const float*>(w_scale),
+      static_cast<const float*>(bias), static_cast<Tout*>(out), s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1179,6 +1567,56 @@ int sr3d_int8_conv3x3_wgmma(const void* x, const void* wq, const void* a_scale,
         x, wq, a_scale, w_scale, bias, out, s, BN, MW, blocks, st);
   return launch_tc_tile<float, float>(x, wq, a_scale, w_scale, bias, out, s,
                                       BN, MW, blocks, st);
+}
+
+// The short-row kernel: x [batch, Cin, H, W] contiguous, 16-byte aligned,
+// bf16 (in_bf16 = 1) or fp32, any W; wq: int8 [Cout][3][3][Cin], 16-byte
+// aligned; a_scale, w_scale, bias, out as for sr3d_int8_conv3x3.  Cin and
+// Cout multiples of 64; IMGS whole images a tile, IMGS * Ho * Wo <= 128
+// (int8_plan); splits <= min(8, 9 Cin / 64) CTAs a cluster, one cluster a
+// tile.  Returns a cudaError_t.
+int sr3d_int8_conv3x3_deep(const void* x, const void* wq, const void* a_scale,
+                           const void* w_scale, const void* bias, void* out,
+                           int batch, int Cin, int H, int W, int Cout,
+                           int stride, int in_bf16, int out_bf16, int IMGS,
+                           int splits, void* stream) {
+  DeepShape s = {};
+  s.B = batch;
+  s.Cin = Cin;
+  s.H = H;
+  s.W = W;
+  s.O = Cout;
+  s.stride = stride;
+  s.Ho = (H - 1) / stride + 1;
+  s.Wo = (W - 1) / stride + 1;
+  s.IMGS = IMGS;
+  s.BH = (s.Ho - 1) * stride + 3;
+  s.BW = (s.Wo - 1) * stride + 3;
+  s.splits = splits;
+  s.units = 9 * (Cin / kChunk);
+  if (batch < 1 || H < 1 || W < 1 || Cin < kChunk || Cin % kChunk ||
+      Cout < kDeepBN || Cout % kDeepBN || (stride != 1 && stride != 2) ||
+      IMGS < 1 || (int64_t)IMGS * s.Ho * s.Wo > 128 || splits < 1 ||
+      splits > 8 || splits > s.units ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wq)) &
+       15))
+    return (int)cudaErrorInvalidValue;
+  s.n_tiles = Cout / kDeepBN;
+  const int64_t tiles = (int64_t)((batch + IMGS - 1) / IMGS) * s.n_tiles;
+  if (tiles * splits > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(tiles * splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_bf16 && out_bf16)
+    return launch_deep<__nv_bfloat16, __nv_bfloat16>(
+        x, wq, a_scale, w_scale, bias, out, s, blocks, st);
+  if (in_bf16)
+    return launch_deep<__nv_bfloat16, float>(x, wq, a_scale, w_scale, bias,
+                                             out, s, blocks, st);
+  if (out_bf16)
+    return launch_deep<float, __nv_bfloat16>(x, wq, a_scale, w_scale, bias,
+                                             out, s, blocks, st);
+  return launch_deep<float, float>(x, wq, a_scale, w_scale, bias, out, s,
+                                   blocks, st);
 }
 
 }  // extern "C"

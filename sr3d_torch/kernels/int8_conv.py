@@ -24,6 +24,11 @@ load it, from a scale that stays on the device:
   bytes (every int8 conv of the flagship UNet) — s8 ``wgmma`` over a
   TMA-loaded band, K split over a thread-block cluster where the output
   tiles cannot fill the card;
+* ``deep``: Cin and O multiples of 64 where a row of x is no multiple of
+  16 bytes (no TMA box: the 4² and 2² levels of the 8→32 UNet) and an
+  output image has at most 128 pixels — s8 ``wgmma`` over whole images,
+  the weights streamed by many CTAs at once through a K split over (tap,
+  chunk) units in a thread-block cluster;
 * ``mma``: every other shape — the first version, ``mma.sync`` s8.
 
 ``int8_plan`` names the path for a shape; it is pure Python, so the CPU
@@ -39,7 +44,7 @@ kernels equal them bit for bit.
 
 Each wrapper runs its plain version for a CPU tensor and the kernel for a
 CUDA tensor, never one in place of the other; kernel launches count in
-``int8_conv.launches``.
+``int8_conv.launches``, and by path in ``int8_conv.path_launches``.
 """
 
 from __future__ import annotations
@@ -66,6 +71,11 @@ PIX_BYTES = 80      # bytes per pixel of its quantized band: 64 channels,
 MAX_CLUSTER = 8     # K splits share one portable thread-block cluster
 MAX_RAW_STAGES = 8  # the ring of raw band stages (TMA boxes in flight)
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
+DEEP_BN = 64        # the short-row path's output channels a CTA
+DEEP_STAGES = 16    # its ring of weight tiles (one unit each)
+DEEP_PIXELS = 128   # its tile: whole output images, at most this many pixels
+DEEP_RECV = 36864   # its received partials: splits × 128 pixels × the
+# channels a rank finishes, for any splits ≤ 8
 
 
 def _align(n: int, a: int = 1024) -> int:
@@ -75,14 +85,20 @@ def _align(n: int, a: int = 1024) -> int:
 @dataclass(frozen=True)
 class Int8Plan:
     """How one int8 conv runs on the card.  ``path`` is ``"wgmma"`` (s8
-    tensor cores fed by TMA) or ``"mma"`` (the first version, ``mma.sync``);
-    ``why`` says why.  For ``wgmma``: a tile is ``images`` × ``rows`` ×
-    ``tile_w`` output pixels (at most 128 · ``mw``) by ``bn`` output
-    channels; ``m_tiles`` × ``n_tiles`` tiles, each computed by a cluster of
-    ``splits`` CTAs that share its 64-channel chunks (``split_chunks``) and
-    sum their int32 partials through distributed shared memory.  ``ks``
+    tensor cores fed by TMA), ``"deep"`` (s8 tensor cores over whole
+    images, rows too short for TMA) or ``"mma"`` (the first version,
+    ``mma.sync``); ``why`` says why.  For ``wgmma``: a tile is ``images``
+    × ``rows`` × ``tile_w`` output pixels (at most 128 · ``mw``) by ``bn``
+    output channels; ``m_tiles`` × ``n_tiles`` tiles, each computed by a
+    cluster of ``splits`` CTAs that share its 64-channel chunks
+    (``split_chunks``) and sum their int32 partials through distributed
+    shared memory.  ``ks``
     is the channel depth of one TMA box of the band, ``raw_stages`` how
-    many are in flight; ``smem_bytes`` the block's dynamic shared memory."""
+    many are in flight; ``smem_bytes`` the block's dynamic shared memory.
+    For ``deep``: ``images`` whole images (``rows`` × ``tile_w`` = Ho × Wo
+    output pixels each, padded bands ``band_h`` × ``band_w``) by ``bn`` =
+    64 channels a tile; the ``splits`` CTAs of a tile's cluster share its
+    9 · Cin / 64 (tap, chunk) units (``split_chunks``)."""
 
     path: str
     why: str
@@ -142,8 +158,7 @@ def int8_plan(B: int, Cin: int, H: int, W: int, O: int, stride: int,
         if n % CHUNK:
             return Int8Plan("mma", f"{name} = {n} is not a multiple of 64")
     if W * el % 16:
-        return Int8Plan("mma", f"a row of x ({W} × {el} bytes) is not a "
-                               f"multiple of 16 bytes (TMA)")
+        return _deep_plan(B, Cin, H, W, O, stride, sm_count, el)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     bn = 128 if O % 128 == 0 else 64
     # two m64 products a warpgroup at BN 64, so a weight tile feeds as many
@@ -216,9 +231,53 @@ def int8_plan(B: int, Cin: int, H: int, W: int, O: int, stride: int,
                     band_w, m_tiles, n_tiles, splits, ks, raw_stages, smem)
 
 
+def deep_smem_bytes(band_pixels: int, raw_bytes: int) -> int:
+    """The short-row kernel's dynamic shared memory (as
+    ``csrc/int8_conv.cu::deep_smem`` computes it): alignment slack, the
+    weight ring, the quantized band, the raw chunk of x (``raw_bytes``),
+    the int32 partials the CTA receives, then the barriers."""
+    return (1024 + DEEP_STAGES * DEEP_BN * 64
+            + _align(band_pixels * PIX_BYTES) + raw_bytes + DEEP_RECV
+            + 2 * DEEP_STAGES * 8)
+
+
+def _deep_plan(B: int, Cin: int, H: int, W: int, O: int, stride: int,
+               sm_count: int, el: int) -> Int8Plan:
+    """Rows of x too short for a TMA box: whole images a tile, as many as
+    128 output pixels and shared memory hold, and K split over (tap, chunk)
+    units until the tiles' CTAs reach the SMs."""
+    short = f"a row of x ({W} × {el} bytes) is not a multiple of 16 bytes"
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    if Ho * Wo > DEEP_PIXELS:
+        return Int8Plan("mma", f"{short} (TMA) and an output image of "
+                               f"{Ho} × {Wo} pixels is more than a tile")
+    band_h, band_w = (Ho - 1) * stride + 3, (Wo - 1) * stride + 3
+
+    def smem(images: int) -> int:
+        return deep_smem_bytes(images * band_h * band_w,
+                               images * CHUNK * H * W * el)
+
+    images = min(B, DEEP_PIXELS // (Ho * Wo))
+    while smem(images) > SMEM_LIMIT:
+        images -= 1
+        if images == 0:
+            return Int8Plan("mma", f"{short} (TMA) and one image's band "
+                                   f"does not fit shared memory")
+    m_tiles, n_tiles = math.ceil(B / images), O // DEEP_BN
+    tiles, units = m_tiles * n_tiles, 9 * (Cin // CHUNK)
+    splits = (1 if tiles >= sm_count
+              else min(units, MAX_CLUSTER, max(1, sm_count // tiles)))
+    return Int8Plan("deep", f"{short}: {tiles} tiles of whole images, K "
+                            f"split {splits} ways", DEEP_BN, 1, Wo, Ho,
+                    images, band_h, band_w, m_tiles, n_tiles, splits,
+                    smem_bytes=smem(images))
+
+
 def split_chunks(chunks: int, splits: int) -> list[tuple[int, int]]:
-    """The 64-channel chunks ``[lo, hi)`` of each K split, as the kernel
-    computes them; each split takes all nine taps of its chunks."""
+    """The 64-channel chunks ``[lo, hi)`` of each K split, as the kernels
+    compute them; each split of the tensor-core kernel takes all nine taps
+    of its chunks.  The short-row kernel splits (tap, chunk) units this
+    way: unit u is tap u % 9 of chunk u // 9."""
     return [(s * chunks // splits, (s + 1) * chunks // splits)
             for s in range(splits)]
 
@@ -316,15 +375,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(x, wk, w_scale, a, bias, out, stride):
+def _launch(x, wk, w_scale, a, bias, out, stride, plan=None):
+    """One kernel launch on ``int8_plan``'s path, or on ``plan``'s (a
+    profiler's comparison of paths)."""
     B, Cin, H, W = x.shape
     O = out.shape[1]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    sm_count = torch.cuda.get_device_properties(
-        x.device).multi_processor_count
-    plan = int8_plan(B, Cin, H, W, O, stride, sm_count, in_dtype=x.dtype)
+    if plan is None:
+        sm_count = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        plan = int8_plan(B, Cin, H, W, O, stride, sm_count, in_dtype=x.dtype)
     args = (a.data_ptr(), w_scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr())
+    int8_conv.path_launches[plan.path] += 1
     if plan.path == "wgmma":
         fn = function("int8_conv", "sr3d_int8_conv3x3_wgmma",
                       [_P] * 6 + [ctypes.c_int] * 17 + [_P])
@@ -333,6 +396,12 @@ def _launch(x, wk, w_scale, a, bias, out, stride):
                     _BF16[out.dtype], plan.bn, plan.mw, plan.tile_w,
                     plan.rows, plan.images, plan.band_w, plan.ks,
                     plan.raw_stages, plan.splits, stream)
+    elif plan.path == "deep":
+        fn = function("int8_conv", "sr3d_int8_conv3x3_deep",
+                      [_P] * 6 + [ctypes.c_int] * 10 + [_P])
+        status = fn(_aligned(x).data_ptr(), _aligned(wk).data_ptr(), *args,
+                    B, Cin, H, W, O, stride, _BF16[x.dtype],
+                    _BF16[out.dtype], plan.images, plan.splits, stream)
     else:
         fn = function("int8_conv", "sr3d_int8_conv3x3",
                       [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
@@ -434,3 +503,4 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor,
 
 
 int8_conv.launches = 0
+int8_conv.path_launches = dict.fromkeys(("wgmma", "deep", "mma"), 0)

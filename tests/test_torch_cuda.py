@@ -36,6 +36,7 @@ from sr3d_torch.kernels.groupnorm_swish import (
 )
 from sr3d_torch.kernels.int8_conv import (
     int8_conv_quantized,
+    int8_conv_quantized_reference,
     int8_conv_reference,
     int8_plan,
     prepare_weight,
@@ -209,6 +210,7 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
                                "gn_swish_backward": 0,
                                "spatial_attention": 1, "conv3x3": 1,
                                "fused_gn_swish_conv3x3": 1, "int8_conv": 1}
+    assert int8_conv.path_launches == {"wgmma": 0, "deep": 0, "mma": 1}
     with pytest.raises(TypeError):
         gn_stats(x.half())
     with pytest.raises(ValueError):
@@ -702,6 +704,101 @@ def test_int8_conv_tensor_cores_match_plain(cuda, xshape, O, stride, splits,
         assert out.dtype == out_dtype and out.shape == ref.shape
         assert torch.equal(out, ref)
         assert torch.equal(again, out)
+
+
+# The short-row int8 conv (s8 wgmma over whole images, the weights streamed
+# by a K split over (tap, chunk) units): the 8 short-row convs of the 8→32
+# UNet at B = 8, then odd W, fp32 rows of 24 bytes, and batches that leave
+# a tile part empty or need several.  Bit for bit, and repeats too.
+SHORT_ROW = [
+    ((8, 512, 2, 2), 512, 1), ((8, 1024, 2, 2), 512, 1),
+    ((8, 256, 4, 4), 512, 1), ((8, 512, 4, 4), 512, 1),
+    ((8, 512, 4, 4), 512, 2), ((8, 1024, 4, 4), 512, 1),
+    ((8, 768, 4, 4), 512, 1),
+    ((1, 64, 9, 13), 64, 1), ((2, 128, 8, 6), 64, 2), ((3, 512, 4, 4), 512, 1),
+    ((32, 512, 4, 4), 512, 1), ((1, 512, 2, 2), 512, 1),
+]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xshape,O,stride", SHORT_ROW)
+def test_int8_conv_short_rows_match_plain(cuda, xshape, O, stride, dtype,
+                                          out_dtype):
+    B, C, H, W = xshape
+    el = 2 if dtype == torch.bfloat16 else 4
+    plan = int8_plan(B, C, H, W, O, stride,
+                     torch.cuda.get_device_properties(
+                         cuda).multi_processor_count, in_dtype=dtype)
+    # fp32 rows of 4 pixels are 16 bytes: those take TMA boxes
+    assert plan.path == ("deep" if W * el % 16 else "wgmma"), plan.why
+    g = torch.Generator(device="cpu").manual_seed(13)
+    x = (torch.randn(xshape, generator=g) * 2).to(dtype).to(cuda)
+    w = (torch.randn(O, C, 3, 3, generator=g) * (9 * C) ** -0.5).to(cuda)
+    b = torch.randn(O, generator=g).to(cuda)
+    for bias, a in ((b, torch.tensor(0.04, device=cuda)), (None, None)):
+        reset_launch_counts()
+        out = int8_conv(x, w, bias, stride=stride, out_dtype=out_dtype,
+                        a_scale=a)
+        again = int8_conv(x, w, bias, stride=stride, out_dtype=out_dtype,
+                          a_scale=a)
+        torch.cuda.synchronize()
+        assert int8_conv.path_launches[plan.path] == 2
+        assert launch_counts()["int8_conv"] == 2
+        ref = int8_conv_reference(x, w, bias, stride=stride,
+                                  out_dtype=out_dtype, a_scale=a)
+        assert out.dtype == out_dtype and out.shape == ref.shape
+        assert torch.equal(out, ref)
+        assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("xshape,O,stride,static", [
+    ((8, 512, 4, 4), 512, 1, True), ((8, 512, 4, 4), 512, 2, False),
+    ((8, 1024, 2, 2), 512, 1, True)])
+def test_int8_short_row_conv_replays_in_a_graph(cuda, xshape, O, stride,
+                                                static):
+    """Captured in a CUDA graph (one launch, nothing synchronising) and
+    replayed on new inputs, the short-row conv gives the eager call's
+    bits."""
+    g = torch.Generator(device="cpu").manual_seed(17)
+    C = xshape[1]
+    w = (torch.randn(O, C, 3, 3, generator=g) * (9 * C) ** -0.5).to(cuda)
+    wk, ws = prepare_weight(w)
+    b = torch.randn(O, generator=g).to(cuda)
+    a = torch.tensor(0.05, device=cuda) if static else None
+    xs = [(torch.randn(xshape, generator=g) * 2).to(torch.bfloat16)
+          .to(cuda) for _ in range(3)]
+    call = lambda x: int8_conv_quantized(x, wk, ws, b, stride=stride,
+                                         a_scale=a)
+    static_x = xs[0].clone()
+    call(static_x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    reset_launch_counts()
+    with torch.cuda.graph(graph):
+        out = call(static_x)
+    assert int8_conv.path_launches == {"wgmma": 0, "deep": 1, "mma": 0}
+    for x in xs[1:]:
+        static_x.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call(x))
+        assert torch.equal(out, int8_conv_quantized_reference(
+            x, wk, ws, b, stride=stride, a_scale=a))
+
+
+def test_int8_8_32_forward_takes_the_short_row_path(cuda):
+    """The 8→32 UNet as the serving CLI runs it, at B = 8: of its 58 int8
+    convs the 22 at the 4² and 2² levels launch the short-row kernel, the
+    36 at 32², 16² and 8² the tensor-core kernel, none the first version."""
+    unet = _served_unet("sr_sr3_VGGF2_8_32_model3.yml", True)
+    x, t = _unet_inputs(unet, 8, 32, 0)
+    with torch.no_grad():
+        reset_launch_counts()
+        _eager(unet, x, t, True)
+    torch.cuda.synchronize()
+    assert launch_counts()["int8_conv"] == 58
+    assert int8_conv.path_launches == {"wgmma": 36, "deep": 22, "mma": 0}
 
 
 def test_int8_cached_static_conv_is_one_launch(cuda):
